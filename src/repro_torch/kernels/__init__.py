@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels of the serving path, their plain PyTorch
+versions (``ref``) and the device dispatch (``ops``).
+
+=================  ==============================  =================================
+kernel             CUDA source                     replaces (TPU kernel)
+=================  ==============================  =================================
+rmsnorm            csrc/rmsnorm.cu                 repro/kernels/rmsnorm.py
+swiglu             csrc/swiglu.cu                  repro/kernels/swiglu.py
+flash_attention    csrc/flash_attention.cu         repro/kernels/flash_attention.py
+=================  ==============================  =================================
+
+Each wrapper module holds a :class:`~repro_torch.kernels.build.CudaKernel`
+as ``KERNEL``, whose ``launches`` counts the launches it made.
+"""
+from . import flash_attention as _flash_attention_mod
+from . import ops, ref  # noqa: F401
+from . import rmsnorm as _rmsnorm_mod
+from . import swiglu as _swiglu_mod
+
+#: every kernel of the serving path, by name
+KERNELS = {
+    "rmsnorm": _rmsnorm_mod.KERNEL,
+    "swiglu": _swiglu_mod.KERNEL,
+    "flash_attention": _flash_attention_mod.KERNEL,
+}

@@ -1,0 +1,36 @@
+// Shared pieces of the port's CUDA kernels: dtype codes, conversions, and
+// the error-string export that every shared library carries.
+//
+// Each kernel source is compiled on its own into a shared library with a
+// plain C interface (kernels/build.py) and called through ctypes.  Every
+// entry point launches on the stream it is given, allocates nothing, and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+// Must match kernels/build.py:DTYPE_CODES.
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,174 @@
+// Flash-attention forward: blocked online-softmax attention of q (B,H,S,hd)
+// against k, v (B,Hkv,T,hd), causal or full, with grouped-query heads.
+//
+// Replaces repro/kernels/flash_attention.py:flash_attention_pallas
+// (_flash_kernel).  What it keeps from the Pallas kernel: the running max,
+// denominator and accumulator in f32, the GQA map (b//H)*Hkv + (b%H)//rep
+// (here: query head h reads kv head h / rep of the same batch row), kv
+// tiles above the causal diagonal skipped, and fully masked rows written
+// as 0.  What differs: the TPU walks the kv axis as a sequential grid
+// dimension with scratch carried across steps; here one block owns a
+// 64-row query tile and loops over kv tiles itself, and the ragged key
+// tail is masked with kpos < T in place of padding.  Causal masking aligns
+// query row i with key i, so causal calls need S == T (the wrapper
+// enforces it; the reference oracle's (T - S) offset is never needed on
+// the serving path).
+//
+// Bound on the H100: at the serving shapes (hd = 64, S = T <= 1024) the
+// tensor-core bound 2*B*H*S^2*hd / 989 TFLOP/s and the byte bound
+// (q, k, v, o once each over 3.35 TB/s) are both a few microseconds.  This
+// first design does not reach either: each thread owns one query row, keeps
+// q and the accumulator in registers, and runs the dot products and the
+// P.V update as f32 FMAs on the CUDA cores, reading each key and value of
+// the shared-memory tile as a broadcast (every thread of the block reads
+// the same address).  It is simple and exact in f32; wgmma tiles and TMA
+// loads are the way to the bound, in a later change.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlockQ = 64;  // query rows per block, one thread each
+constexpr int kBlockK = 32;  // keys per shared-memory tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBlockQ)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, int H, int Hkv, int S, int Tk, float scale_log2,
+                 int causal) {
+  __shared__ float ks[kBlockK][HD];
+  __shared__ float vs[kBlockK][HD];
+
+  const int bh = blockIdx.y;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+  const int q0 = blockIdx.x * kBlockQ;
+  const int row = q0 + threadIdx.x;
+  const bool live_row = row < S;
+
+  const T* kbase = k + static_cast<int64_t>(kvh) * Tk * HD;
+  const T* vbase = v + static_cast<int64_t>(kvh) * Tk * HD;
+
+  // q pre-scaled by scale * log2(e): scores live in the log2 domain, so
+  // exp2f gives exp(score - max) exactly as the oracle's softmax.
+  float qr[HD];
+  float acc[HD];
+  if (live_row) {
+    const T* qrow = q + (static_cast<int64_t>(bh) * S + row) * HD;
+#pragma unroll
+    for (int c = 0; c < HD; ++c) qr[c] = repro::to_float(qrow[c]) * scale_log2;
+  } else {
+#pragma unroll
+    for (int c = 0; c < HD; ++c) qr[c] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < HD; ++c) acc[c] = 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+
+  // causal (S == T): the tile's last query row attends keys [0, q0 + kBlockQ)
+  const int kv_end = causal ? min(Tk, q0 + kBlockQ) : Tk;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockK) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int i = threadIdx.x; i < kBlockK * HD; i += kBlockQ) {
+      const int r = i / HD;
+      const int c = i - r * HD;
+      const int kpos = kv0 + r;
+      const bool in_range = kpos < Tk;
+      ks[r][c] = in_range ? repro::to_float(kbase[static_cast<int64_t>(kpos) * HD + c]) : 0.f;
+      vs[r][c] = in_range ? repro::to_float(vbase[static_cast<int64_t>(kpos) * HD + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // keys of this tile the row may see: kpos < T, and kpos <= row if causal
+    int n = min(kBlockK, Tk - kv0);
+    if (causal) n = min(n, row - kv0 + 1);
+    if (!live_row || n <= 0) continue;
+
+    float s[kBlockK];
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBlockK; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < HD; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+      s[j] = j < n ? dot : -INFINITY;
+      tile_max = fmaxf(tile_max, s[j]);
+    }
+    const float m_new = fmaxf(m, tile_max);  // finite: n >= 1
+    const float alpha = exp2f(m - m_new);     // 0 on the row's first tile
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockK; ++j) {
+      s[j] = exp2f(s[j] - m_new);
+      psum += s[j];
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int c = 0; c < HD; ++c) {
+      float a = acc[c] * alpha;
+#pragma unroll
+      for (int j = 0; j < kBlockK; ++j) a = fmaf(s[j], vs[j][c], a);
+      acc[c] = a;
+    }
+    m = m_new;
+  }
+
+  if (live_row) {
+    T* orow = o + (static_cast<int64_t>(bh) * S + row) * HD;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // fully masked rows -> 0
+#pragma unroll
+    for (int c = 0; c < HD; ++c) orow[c] = repro::from_float<T>(acc[c] * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+                   int Hkv, int S, int Tk, float scale, int causal, cudaStream_t stream) {
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  flash_fwd_kernel<T, HD><<<grid, kBlockQ, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, Hkv, S, Tk, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Hkv, int S, int Tk, int hd, float scale, int causal,
+                        cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, o: (B, H, S, hd); k, v: (B, Hkv, T, hd); all contiguous, H % Hkv == 0,
+// hd in {16, 32, 64, 128}, causal only with S == T.  dtype: repro::DType.
+extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                     int B, int H, int Hkv, int S, int T, int hd, float scale,
+                                     int causal, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case repro::kFloat32:
+      return dispatch_hd<float>(q, k, v, o, B, H, Hkv, S, T, hd, scale, causal, s);
+    case repro::kBFloat16:
+      return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T, hd, scale, causal, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

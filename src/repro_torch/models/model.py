@@ -1,0 +1,148 @@
+"""Model assembly for the dense family: init / forward / decode.
+
+The counterpart of ``repro/models/model.py`` for ``family="dense"``:
+``[rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L``, then the final
+norm and the (tied or separate) vocabulary head.  The reference stacks the
+layers and runs them under ``lax.scan``; here ``params["layers"]`` is a list
+of per-layer dicts and ``forward`` is a Python loop over it.  Other
+families (moe, ssm, hybrid, vlm, audio) are later slices of the port.
+
+Parameters are nested dicts of tensors with the reference's names and the
+JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an explicit
+``torch.Generator`` with the reference's distributions and scales.  The
+decode state keeps the reference's ``(L, B, Hkv, T, hd)`` caches and is
+updated in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from .attention import attention, attn_init
+from .layers import dense, rmsnorm, rmsnorm_init
+from .mlp import mlp, mlp_init
+
+__all__ = ["init_params", "init_decode_state", "forward", "apply_head", "decode_step",
+           "torch_dtype"]
+
+Device = Union[str, torch.device, None]
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense family; {cfg.family!r} is not "
+            f"ported yet (ROADMAP queue A)")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
+                device: torch.device) -> Dict:
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, **kw),
+        "attn": attn_init(gen, cfg, **kw),
+        "ln2": rmsnorm_init(cfg.d_model, **kw),
+        "ffn": mlp_init(gen, cfg, **kw),
+    }
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> Dict:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``.
+
+    The same seed gives the same weights on one device type; the CPU's and
+    the card's generators give different numbers (tests that compare
+    packages convert the reference's weights with ``from_jax_params``)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {}
+    # vocab rows are padded to cfg.padded_vocab, as in the reference; the
+    # padded logits are dropped after the head
+    embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=dev) * 0.02
+    params["embed"] = embed.to(dtype)
+    params["layers"] = [_layer_init(gen, cfg, dtype=dtype, device=dev)
+                        for _ in range(cfg.num_layers)]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, dtype=dtype, device=dev)
+    if not cfg.tie_embeddings:
+        head = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen, device=dev) * 0.02
+        params["lm_head"] = {"w": head.to(dtype)}
+    return params
+
+
+# --------------------------------------------------------------------------
+# decode state
+# --------------------------------------------------------------------------
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
+                      device: Device = "cuda") -> Dict[str, torch.Tensor]:
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+    dtype = torch_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden -> (padded-)vocab logits in f32."""
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].t()
+    else:
+        logits = dense(params["lm_head"], x)
+    return logits.float()
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Dict,
+    batch: Dict[str, torch.Tensor],
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: int = 0,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Returns ((B, S, vocab_size) f32 logits, cache).  ``batch["tokens"]``
+    is (B, S) on the params' device; ``cache``, when given, is written in
+    place at ``cache_pos`` and returned."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    B, S, _ = x.shape
+    positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
+
+    for i, layer in enumerate(params["layers"]):
+        kv = None if cache is None else (cache["k"][i], cache["v"][i])
+        h, _ = attention(layer["attn"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
+                         positions=positions, kv_cache=kv, cache_pos=cache_pos)
+        x = x + h
+        x = x + mlp(layer["ffn"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps))
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
+    return logits, cache
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Dict,
+    state: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # (B, 1)
+    cache_pos: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token of autoregressive decode against the serve state (written
+    in place at ``cache_pos`` for every lane)."""
+    logits, state = forward(cfg, params, {"tokens": tokens}, cache=state,
+                            cache_pos=cache_pos)
+    return logits[:, -1], state

@@ -1,0 +1,193 @@
+"""The port's kernel modules on the CPU against the JAX package.
+
+Every input is drawn with numpy from a fixed seed and handed to both
+packages.  Each plain PyTorch version (what a kernel wrapper runs for a CPU
+tensor) is held to ``repro.kernels.ref`` and to the Pallas kernel in
+interpret mode, at the shapes of ``tests/test_kernels.py`` and with its
+tolerances (f32 1e-5, bf16 2e-2, flash f32 2e-4).  The wrappers' input
+checks are exercised here too; the CUDA kernels themselves run only on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention_pallas, rmsnorm_pallas, swiglu_pallas
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import KERNELS, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.swiglu import swiglu
+
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _pair(rng, shape, dtype, mul=1.0, add=0.0):
+    """The same values as a jax array and a torch tensor (both round the f32
+    draw to bf16 the same way, to nearest even)."""
+    x = (rng.normal(size=shape) * mul + add).astype(np.float32)
+    return jnp.asarray(x, dtype=getattr(jnp, dtype)), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _np(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (3, 5, 256), (2, 7, 384), (1, 1, 512)])
+def test_rmsnorm_plain_matches_reference(shape, dtype):
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng, shape, dtype)
+    js, ts = _pair(rng, shape[-1:], dtype, mul=0.1, add=1.0)
+    got = _np(rmsnorm(tx, ts))
+    np.testing.assert_allclose(got, _np(jref.rmsnorm(jx, js)), **TOL[dtype])
+    np.testing.assert_allclose(got, _np(rmsnorm_pallas(jx, js, interpret=True)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 128), (2, 3, 512), (5, 77), (1, 1000)])
+def test_swiglu_plain_matches_reference(shape, dtype):
+    rng = np.random.default_rng(2)
+    (jg, tg), (ju, tu) = _pair(rng, shape, dtype), _pair(rng, shape, dtype)
+    got = _np(swiglu(tg, tu))
+    np.testing.assert_allclose(got, _np(jref.swiglu(jg, ju)), **TOL[dtype])
+    np.testing.assert_allclose(got, _np(swiglu_pallas(jg, ju, interpret=True)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,hd,causal",
+    [
+        (1, 2, 2, 128, 64, True),
+        (2, 4, 2, 256, 64, True),  # GQA
+        (1, 8, 2, 128, 128, True),
+        (2, 2, 1, 256, 32, False),  # non-causal
+        (1, 2, 2, 200, 64, True),  # ragged S
+        (1, 4, 2, 24, 16, True),  # the reduced configs' head_dim
+    ],
+)
+def test_flash_attention_plain_matches_reference(B, H, Hkv, S, hd, causal, dtype):
+    rng = np.random.default_rng(3)
+    jq, tq = _pair(rng, (B, H, S, hd), dtype, mul=0.5)
+    jk, tk = _pair(rng, (B, Hkv, S, hd), dtype, mul=0.5)
+    jv, tv = _pair(rng, (B, Hkv, S, hd), dtype)
+    got = _np(flash_attention(tq, tk, tv, causal=causal))
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got, _np(jref.flash_attention(jq, jk, jv, causal=causal)), **tol)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, interpret=True,
+                                    block_q=64, block_k=64)
+    np.testing.assert_allclose(got, _np(pallas), **tol)
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True), (True, True)])
+def test_flash_attention_chunked_matches_reference(causal, masked):
+    rng = np.random.default_rng(4)
+    B, H, Hkv, S, T, hd, chunk = 2, 4, 2, 32, 64, 16, 16
+    jq, tq = _pair(rng, (B, H, S, hd), "float32", mul=0.5)
+    jk, tk = _pair(rng, (B, Hkv, T, hd), "float32", mul=0.5)
+    jv, tv = _pair(rng, (B, Hkv, T, hd), "float32")
+    mask = (rng.random((B, T)) < 0.8) if masked else None
+    if masked:
+        mask[:, 0] = True  # every query keeps a key in the first chunk
+    kw = dict(causal=causal, chunk=chunk)
+    want = jref.flash_attention_chunked(
+        jq, jk, jv, kv_mask=None if mask is None else jnp.asarray(mask), **kw)
+    got = ref.flash_attention_chunked(
+        tq, tk, tv, kv_mask=None if mask is None else torch.from_numpy(mask), **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL["float32"])
+
+
+def test_ops_flash_dispatch_matches_reference_ops():
+    """Decode with a kv_mask takes the plain masked path; long prefill on
+    the CPU takes the chunked path above FLASH_CHUNK_THRESHOLD, as the
+    reference's ref backend does."""
+    assert ops.FLASH_CHUNK_THRESHOLD == jops.FLASH_CHUNK_THRESHOLD
+    assert ops.FLASH_CHUNK == jops.FLASH_CHUNK
+    rng = np.random.default_rng(5)
+    B, H, Hkv, T, hd = 2, 4, 2, 40, 16
+    jq, tq = _pair(rng, (B, H, 1, hd), "float32")
+    jk, tk = _pair(rng, (B, Hkv, T, hd), "float32")
+    jv, tv = _pair(rng, (B, Hkv, T, hd), "float32")
+    valid = np.arange(T)[None, :] <= np.array([[7], [30]])
+    want = jops.flash_attention(jq, jk, jv, causal=False, kv_mask=jnp.asarray(valid))
+    got = ops.flash_attention(tq, tk, tv, causal=False, kv_mask=torch.from_numpy(valid))
+    np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL["float32"])
+
+    S = T = ops.FLASH_CHUNK_THRESHOLD + ops.FLASH_CHUNK  # chunked branch, 5 chunks
+    q = torch.from_numpy(rng.normal(size=(1, 1, S, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 1, T, 16)).astype(np.float32))
+    got = ops.flash_attention(q, k, k, causal=True)
+    want = ref.flash_attention_chunked(q, k, k, causal=True, chunk=ops.FLASH_CHUNK)
+    assert torch.equal(got, want)
+
+
+def test_plain_versions_do_not_count_launches():
+    before = {n: k.launches for n, k in KERNELS.items()}
+    x = torch.ones(3, 16)
+    rmsnorm(x, torch.ones(16))
+    swiglu(x, x)
+    flash_attention(torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16), torch.ones(1, 1, 4, 16))
+    assert {n: k.launches for n, k in KERNELS.items()} == before
+
+
+# --------------------------------------------------------------------------
+# the wrappers' checks: what the kernel does not take raises on every device
+# --------------------------------------------------------------------------
+def test_rmsnorm_wrapper_checks_raise():
+    x = torch.ones(4, 32)
+    with pytest.raises(TypeError):
+        rmsnorm(x.half(), torch.ones(32).half())
+    with pytest.raises(TypeError):
+        rmsnorm(x, torch.ones(32, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.ones(16))
+    with pytest.raises(ValueError):
+        rmsnorm(torch.ones(32, 4).t(), torch.ones(32))  # not contiguous
+    with pytest.raises(ValueError):
+        rmsnorm(x.to("meta"), torch.ones(32, device="meta"))  # neither cpu nor cuda
+
+
+def test_swiglu_wrapper_checks_raise():
+    g = torch.ones(4, 32)
+    with pytest.raises(TypeError):
+        swiglu(g.half(), g.half())
+    with pytest.raises(TypeError):
+        swiglu(g, g.bfloat16())
+    with pytest.raises(ValueError):
+        swiglu(g, torch.ones(4, 16))
+    with pytest.raises(ValueError):
+        swiglu(torch.ones(32, 4).t(), torch.ones(4, 32))
+    with pytest.raises(ValueError):
+        swiglu(g.to("meta"), g.to("meta"))
+
+
+def test_flash_attention_wrapper_checks_raise():
+    q, kv = torch.ones(1, 4, 8, 16), torch.ones(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="S == T"):
+        flash_attention(q, torch.ones(1, 2, 12, 16), torch.ones(1, 2, 12, 16), causal=True)
+    flash_attention(q, torch.ones(1, 2, 12, 16), torch.ones(1, 2, 12, 16), causal=False)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(torch.ones(1, 4, 8, 24), torch.ones(1, 2, 8, 24), torch.ones(1, 2, 8, 24))
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.ones(1, 3, 8, 16), torch.ones(1, 3, 8, 16))  # H % Hkv
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, torch.ones(1, 2, 8, 32))
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
