@@ -8,32 +8,37 @@ Run from the root of a checkout:
 Phases, each of which fails the run (non-zero exit, no result line) if it
 fails:
 
-1. build: every kernel of the serving path from ``src/repro_torch/kernels/
+1. build: every kernel of the serving paths from ``src/repro_torch/kernels/
    csrc`` with ``nvcc`` for sm_90a (one process per source, started
    together); prints each kernel's ``-Xptxas -v`` register, shared-memory
    and spill lines;
 2. check: each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and f32, within the tolerances in ``TOL``;
+   serving paths' shapes, in bf16 and f32, within the tolerances in ``TOL``
+   (``[check/wkv6]``: B 4, H 64, hd 64, S in 1, 128, 200 and 512, from a
+   non-zero random state, with the decay drawn by the model's formula);
 3. time: each kernel, its plain version, and one PyTorch call computing the
-   same function (``library_ms``; the port never calls it), with CUDA
-   events at the largest serving shape; the bound is computed from the
-   shapes (bytes over 3.35 TB/s, operations over the H100's peak rate);
-4. forward: a 2-layer, full-width granite-3-2b forward (f32) with the same
-   weights on the card (kernels) and on the CPU (plain versions): the max
-   logit error and the argmax agreement;
-5. serve: full granite-3-2b (40 layers, bf16, random weights from a seed)
-   through ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8
-   requests with prompt lengths from ``numpy.random.default_rng(0)`` in
-   [64, 512]; every request must finish with 16 tokens and each kernel's
-   launch count must grow by what the schedule predicts.
+   same function (``library_ms``; the port never calls it; none exists for
+   WKV6), with CUDA events at the largest serving shape, and WKV6 at the
+   decode shape too; the bound is computed from the shapes (bytes over
+   3.35 TB/s, operations over the H100's peak rate);
+4. forward: a 2-layer, full-width granite-3-2b forward and a 2-layer,
+   full-width rwkv6-7b forward (f32), each with the same weights on the
+   card (kernels) and on the CPU (plain versions): the max logit error, the
+   argmax agreement and the launch counts;
+5. serve: full granite-3-2b (40 layers, bf16) and then full rwkv6-7b (32
+   layers, d 4096, bf16), random weights from a seed, each through
+   ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
+   with prompt lengths from ``numpy.random.default_rng(0)`` in [64, 512];
+   every request must finish with 16 tokens and each kernel's launch count
+   must grow by what the schedule predicts.
 
-The last lines are the ``{"kernels": [...]}`` line (``launches`` counted
-in phase 5, ``max_abs_err`` the largest of phase 2's checks, the times
-from phase 3), the card's name and power limit as
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-them, and ``{"ok": true, "device": {...}}``.  Without
-a CUDA device, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
+over the two serves of phase 5, each counted from 0 just before its drain;
+``max_abs_err`` the largest of phase 2's checks; the times from phase 3),
+the card's name and power limit as ``nvidia-smi --query-gpu=name,
+power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -52,7 +57,11 @@ TOL = {
     "rmsnorm": {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)},
     "swiglu": {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)},
     "flash_attention": {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)},
+    # y; f32 as tests/test_kernels.py holds the Pallas kernel to its oracle
+    "wkv6": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
 }
+#: the WKV6 final state (f32 in both cases), (rtol, atol) by input dtype
+WKV6_STATE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 1e-4)}
 #: 2-layer f32 forward, card vs CPU: absolute logit error, argmax agreement
 FORWARD_ATOL = 1e-3
 FORWARD_ARGMAX_MIN = 0.99
@@ -66,12 +75,14 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:31",
     "swiglu": "src/repro/kernels/swiglu.py:25",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
+    "wkv6": "src/repro/kernels/rwkv6_scan.py:62",
 }
 
 DEVICE = "cuda:0"
 SERVE = dict(batch_size=4, max_seq=1024, max_new_tokens=16, requests=8,
              prompt_min=64, prompt_max=512)
 CHECK_S = (128, 200, 512)  # prompt lengths of the per-kernel checks
+WKV6_CHECK_S = (1,) + CHECK_S  # decode and prompt lengths
 TIME_S = 512  # the longest prompt: the timed shapes
 
 
@@ -145,140 +156,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
-              f"(src/repro_torch missing)", file=sys.stderr)
-        return 1
+def forward_phase(name, cfg, dev, expect_launches):
+    """A 2-layer, full-width f32 forward of ``cfg`` with the same weights on
+    the card (kernels) and on the CPU (plain versions)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; nothing to drive",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS, build, ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.swiglu import swiglu
+    from repro_torch.kernels import KERNELS
     from repro_torch.models import forward, init_params
-    from repro_torch.runtime import BatchedServer, ServerConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(DEVICE)
-    card = nvidia_smi()
-    print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} | nvidia-smi: {card}")
-    t_start = time.perf_counter()
-
-    # ---- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all(list(KERNELS.values()))
-    print(f"[build] {len(KERNELS)} kernels with {build.nvcc_path()} in "
-          f"{time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
-    for name, k in KERNELS.items():
-        for line in k.build_log.splitlines():
-            if "ptxas info" in line or "spill" in line:
-                print(f"[build/{name}] {line.strip()}")
-
-    # ---- 2. check each kernel against its plain version on the card ---------
-    cfg = get_config("granite-3-2b")
-    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    B = SERVE["batch_size"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, dtype, mul=1.0, add=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * mul + add).to(dtype)
-
-    max_err = {n: 0.0 for n in KERNELS}
-
-    def compare(name, got, want, dtype, label):
-        torch.cuda.synchronize()
-        rtol, atol = TOL[name][str(dtype).split(".")[-1]]
-        err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
-        ok = ok and bool(torch.isfinite(got.float()).all())
-        max_err[name] = max(max_err[name], err)
-        print(f"[check/{name}] {label} {str(dtype).split('.')[-1]} max_abs_err={err:.3e} "
-              f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} {label} {dtype}: kernel disagrees with its plain version")
-
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in [B] + [B * s for s in CHECK_S]:  # decode rows, prefill rows
-            x = randn(rows, d, dtype=dtype)
-            sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
-            compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
-                    ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
-            g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
-            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
-        cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
-        cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
-        cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
-        for b, h, hk, s, t, e, causal in cases:
-            q = randn(b, h, s, e, dtype=dtype, mul=0.5)
-            k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
-            v = randn(b, hk, t, e, dtype=dtype)
-            compare("flash_attention", flash_attention(q, k, v, causal=causal),
-                    ref.flash_attention(q, k, v, causal=causal), dtype,
-                    f"B={b} H={h} Hkv={hk} S={s} T={t} hd={e} causal={causal}")
-
-    # ---- 3. time at the largest serving shape (bf16) -------------------------
-    bf16, es = torch.bfloat16, 2
-    rows = B * TIME_S
-    x, sc = randn(rows, d, dtype=bf16), randn(d, dtype=bf16, mul=0.1, add=1.0)
-    g, u = randn(rows, dff, dtype=bf16), randn(rows, dff, dtype=bf16)
-    q = randn(B, H, TIME_S, hd, dtype=bf16, mul=0.5)
-    k = randn(B, Hkv, TIME_S, hd, dtype=bf16, mul=0.5)
-    v = randn(B, Hkv, TIME_S, hd, dtype=bf16)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    try:
-        sdpa()
-    except TypeError:  # a torch without enable_gqa has no one-call GQA attention
-        sdpa = None
-    rms_lib = ((lambda: F.rms_norm(x, (d,), weight=sc, eps=cfg.norm_eps))
-               if hasattr(F, "rms_norm") else None)
-    pairs = TIME_S * (TIME_S + 1) // 2  # (query, key) pairs under the causal mask
-    timed = {
-        "rmsnorm": dict(
-            kernel=lambda: rmsnorm(x, sc, eps=cfg.norm_eps),
-            plain=lambda: ref.rmsnorm(x, sc, cfg.norm_eps), library=rms_lib,
-            bytes=(2 * rows * d + d) * es, ops=4 * rows * d, peak=F32_FLOP_S,
-            shape=f"x ({rows},{d}) bf16"),
-        "swiglu": dict(
-            kernel=lambda: swiglu(g, u), plain=lambda: ref.swiglu(g, u),
-            library=lambda: F.silu(g) * u,
-            bytes=3 * rows * dff * es, ops=5 * rows * dff, peak=F32_FLOP_S,
-            shape=f"gate, up ({rows},{dff}) bf16"),
-        "flash_attention": dict(
-            kernel=lambda: flash_attention(q, k, v, causal=True),
-            plain=lambda: ref.flash_attention(q, k, v, causal=True), library=sdpa,
-            bytes=(2 * B * H * TIME_S * hd + 2 * B * Hkv * TIME_S * hd) * es,
-            ops=4 * B * H * hd * pairs, peak=BF16_TENSOR_FLOP_S,
-            shape=f"q ({B},{H},{TIME_S},{hd}) k,v ({B},{Hkv},{TIME_S},{hd}) bf16 causal"),
-    }
-    results = {}
-    for name, t in timed.items():
-        ms = time_ms(t["kernel"])
-        plain_ms = time_ms(t["plain"])
-        lib_ms = time_ms(t["library"]) if t["library"] is not None else None
-        byte_ms = t["bytes"] / HBM_BYTES_S * 1e3
-        op_ms = t["ops"] / t["peak"] * 1e3
-        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=max(byte_ms, op_ms),
-                             bound_by="bytes" if byte_ms >= op_ms else "operations")
-        print(f"[time/{name}] {t['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
-              f"{t['bytes']} B, {t['ops']} ops)")
-
-    # ---- 4. 2-layer full-width forward: card (kernels) vs CPU (plain) -------
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     p_cpu = init_params(cfg2, seed=0, device="cpu")
     p_gpu = to_device(p_cpu, dev)
@@ -288,29 +174,41 @@ def main() -> int:
     with torch.no_grad():
         got, _ = forward(cfg2, p_gpu, {"tokens": toks.to(dev)})
         torch.cuda.synchronize()
-        fwd_launches = {n: kern.launches for n, kern in KERNELS.items()}
+        launches = {n: kern.launches for n, kern in KERNELS.items()}
         want, _ = forward(cfg2, p_cpu, {"tokens": toks})
     got = got.cpu()
-    fwd_err = float((got - want).abs().max())
+    err = float((got - want).abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"[forward] 2-layer full-width f32 (2,128): max_abs_logit_err={fwd_err:.3e} "
+    print(f"[forward/{name}] 2-layer full-width f32 (2,128): max_abs_logit_err={err:.3e} "
           f"(atol {FORWARD_ATOL}) argmax_agreement={agree:.4f} "
-          f"logit_absmax={float(want.abs().max()):.3f} launches={fwd_launches}")
+          f"logit_absmax={float(want.abs().max()):.3f} launches={launches}")
     check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
-          "card forward: non-finite logits or wrong shape")
-    check(fwd_err <= FORWARD_ATOL, "card forward disagrees with the CPU forward")
-    check(agree >= FORWARD_ARGMAX_MIN, "card forward argmax disagrees with the CPU forward")
-    check(fwd_launches == {"rmsnorm": 5, "swiglu": 2, "flash_attention": 2},
-          f"card forward did not go through the kernels: {fwd_launches}")
-    del p_cpu, p_gpu
+          f"{name} card forward: non-finite logits or wrong shape")
+    check(err <= FORWARD_ATOL, f"{name} card forward disagrees with the CPU forward")
+    check(agree >= FORWARD_ARGMAX_MIN, f"{name} card forward argmax disagrees with the CPU")
+    check(launches == expect_launches,
+          f"{name} card forward did not go through the kernels: {launches}")
 
-    # ---- 5. serve full granite-3-2b -----------------------------------------
+
+def serve_phase(name, cfg, dev, per_forward):
+    """Serve ``SERVE["requests"]`` requests on full ``cfg`` (bf16, random
+    weights from seed 0); ``per_forward(L, is_prefill)`` gives each kernel's
+    launches per forward.  Returns the kernels' launches over the drain."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.runtime import BatchedServer, ServerConfig
+
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
-    print(f"[serve] granite-3-2b {cfg.num_layers} layers d={d} {cfg.dtype}: "
-          f"{n_params / 1e9:.3f} B parameters initialised in {time.perf_counter() - t0:.1f}s")
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[serve/{name}] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f}s")
     scfg = ServerConfig(batch_size=SERVE["batch_size"], max_seq=SERVE["max_seq"],
                         max_new_tokens=SERVE["max_new_tokens"])
     server = BatchedServer(cfg, params, scfg, device=dev)
@@ -338,28 +236,215 @@ def main() -> int:
     prefills, decodes = predict_forwards(lens, scfg.batch_size, scfg.max_new_tokens,
                                          scfg.max_seq)
     L = cfg.num_layers
-    expect = {"rmsnorm": (2 * L + 1) * (prefills + decodes),
-              "swiglu": L * (prefills + decodes), "flash_attention": L * prefills}
-    print(f"[serve] prompts {lens}; {rep['requests']} requests, {rep['tokens']} tokens in "
-          f"{wall:.3f}s: {rep['throughput_tok_s']:.2f} tok/s, ttft_p50 "
+    expect = {n: prefills * per_forward(L, True)[n] + decodes * per_forward(L, False)[n]
+              for n in KERNELS}
+    print(f"[serve/{name}] prompts {lens}; {rep['requests']} requests, {rep['tokens']} tokens "
+          f"in {wall:.3f}s: {rep['throughput_tok_s']:.2f} tok/s, ttft_p50 "
           f"{rep['ttft_p50_s'] * 1e3:.2f} ms, latency p50 {rep['latency_p50_s'] * 1e3:.2f} ms "
           f"p99 {rep['latency_p99_s'] * 1e3:.2f} ms, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[serve] schedule: {prefills} prefills, {decodes} decode forwards; "
+    print(f"[serve/{name}] schedule: {prefills} prefills, {decodes} decode forwards; "
           f"launches {launches}, predicted {expect}")
     # prefills block the engine one at a time, so the rest of the drain is decode
     prefill_s = sum(r["prefill_done_s"] - r["prefill_start_s"] for r in rep["per_request"])
-    print(f"[serve] time split: prefill {prefill_s:.3f}s ({prefill_s / prefills * 1e3:.2f} ms "
-          f"per prefill at batch {B}), decode and host bookkeeping {wall - prefill_s:.3f}s "
+    print(f"[serve/{name}] time split: prefill {prefill_s:.3f}s "
+          f"({prefill_s / prefills * 1e3:.2f} ms per prefill at batch {scfg.batch_size}), "
+          f"decode and host bookkeeping {wall - prefill_s:.3f}s "
           f"({(wall - prefill_s) / decodes * 1e3:.2f} ms per decode forward)")
     check(rep["requests"] == SERVE["requests"] and len(results_tok) == SERVE["requests"],
-          f"served {rep['requests']} of {SERVE['requests']} requests")
+          f"{name}: served {rep['requests']} of {SERVE['requests']} requests")
     for rid, toks_out in results_tok.items():
         check(len(toks_out) == SERVE["max_new_tokens"],
-              f"request {rid} finished with {len(toks_out)} tokens")
+              f"{name}: request {rid} finished with {len(toks_out)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in toks_out),
-              f"request {rid} emitted a token outside the vocabulary")
-    check(launches == expect, f"kernel launches {launches} != predicted {expect}")
+              f"{name}: request {rid} emitted a token outside the vocabulary")
+    check(launches == expect, f"{name}: kernel launches {launches} != predicted {expect}")
+    del server, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              f"(src/repro_torch missing)", file=sys.stderr)
+        return 1
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing to drive",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.swiglu import swiglu
+    from repro_torch.kernels.wkv6 import rwkv6_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    card = nvidia_smi()
+    print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} | nvidia-smi: {card}")
+    t_start = time.perf_counter()
+
+    # ---- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build_all(list(KERNELS.values()))
+    print(f"[build] {len(KERNELS)} kernels with {build.nvcc_path()} in "
+          f"{time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
+    for name, k in KERNELS.items():
+        for line in k.build_log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"[build/{name}] {line.strip()}")
+
+    # ---- 2. check each kernel against its plain version on the card ---------
+    cfg = get_config("granite-3-2b")
+    rcfg = get_config("rwkv6-7b")
+    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rH, rhd = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
+    B = SERVE["batch_size"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype, mul=1.0, add=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * mul + add).to(dtype)
+
+    def wkv6_inputs(S, dtype):
+        """r, k, v, the decay by the model's formula (w0 drawn as rwkv6_init
+        draws it, plus a data-dependent term: w near 1), u and a non-zero
+        initial state."""
+        r, k = randn(B, rH, S, rhd, dtype=dtype, mul=0.5), randn(B, rH, S, rhd, dtype=dtype, mul=0.5)
+        v = randn(B, rH, S, rhd, dtype=dtype)
+        w0 = randn(rH, rhd, dtype=torch.float32, mul=0.1, add=-6.0)
+        w_log = w0[None, :, None, :] + randn(B, rH, S, rhd, dtype=torch.float32, mul=0.5)
+        w = torch.exp(-torch.exp(w_log)).to(dtype)
+        u = randn(rH, rhd, dtype=torch.float32, mul=0.1)
+        s0 = randn(B, rH, rhd, rhd, dtype=torch.float32)
+        return r, k, v, w, u, s0
+
+    max_err = {n: 0.0 for n in KERNELS}
+
+    def compare(name, got, want, dtype, label, tol=None):
+        torch.cuda.synchronize()
+        rtol, atol = tol or TOL[name][str(dtype).split(".")[-1]]
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        max_err[name] = max(max_err[name], err)
+        print(f"[check/{name}] {label} {str(dtype).split('.')[-1]} max_abs_err={err:.3e} "
+              f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {dtype}: kernel disagrees with its plain version")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in [B] + [B * s for s in CHECK_S]:  # decode rows, prefill rows
+            x = randn(rows, d, dtype=dtype)
+            sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
+            compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
+                    ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
+            g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
+            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
+        cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
+        cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
+        cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
+        for b, h, hk, s, t, e, causal in cases:
+            q = randn(b, h, s, e, dtype=dtype, mul=0.5)
+            k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
+            v = randn(b, hk, t, e, dtype=dtype)
+            compare("flash_attention", flash_attention(q, k, v, causal=causal),
+                    ref.flash_attention(q, k, v, causal=causal), dtype,
+                    f"B={b} H={h} Hkv={hk} S={s} T={t} hd={e} causal={causal}")
+        for s in WKV6_CHECK_S:
+            args = wkv6_inputs(s, dtype)
+            (y, sT), (y_ref, sT_ref) = rwkv6_scan(*args), ref.rwkv6_scan(*args)
+            label = f"B={B} H={rH} S={s} hd={rhd}"
+            compare("wkv6", y, y_ref, dtype, label + " y")
+            compare("wkv6", sT, sT_ref, dtype, label + " state",
+                    tol=WKV6_STATE_TOL[str(dtype).split(".")[-1]])
+
+    # ---- 3. time at the largest serving shape (bf16) -------------------------
+    bf16, es = torch.bfloat16, 2
+    rows = B * TIME_S
+    x, sc = randn(rows, d, dtype=bf16), randn(d, dtype=bf16, mul=0.1, add=1.0)
+    g, u = randn(rows, dff, dtype=bf16), randn(rows, dff, dtype=bf16)
+    q = randn(B, H, TIME_S, hd, dtype=bf16, mul=0.5)
+    k = randn(B, Hkv, TIME_S, hd, dtype=bf16, mul=0.5)
+    v = randn(B, Hkv, TIME_S, hd, dtype=bf16)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    try:
+        sdpa()
+    except TypeError:  # a torch without enable_gqa has no one-call GQA attention
+        sdpa = None
+    rms_lib = ((lambda: F.rms_norm(x, (d,), weight=sc, eps=cfg.norm_eps))
+               if hasattr(F, "rms_norm") else None)
+    pairs = TIME_S * (TIME_S + 1) // 2  # (query, key) pairs under the causal mask
+
+    def wkv6_timed(S):
+        """WKV6 at (B, 64, S, 64) bf16.  Bytes: r, k, v, w read and y written
+        once, u, and the f32 state read and written.  Operations per step
+        and head: y = r.S (2 hd^2), S <- w*S + k v^T (3 hd^2), and the u
+        bonus (r*u*k summed, times v, added: 5 hd), f32 on the CUDA cores."""
+        args = wkv6_inputs(S, bf16)
+        return dict(
+            kernel=lambda: rwkv6_scan(*args), plain=lambda: ref.rwkv6_scan(*args),
+            library=None,
+            bytes=5 * B * rH * S * rhd * es + rH * rhd * 4 + 2 * B * rH * rhd * rhd * 4,
+            ops=B * rH * S * (5 * rhd * rhd + 5 * rhd), peak=F32_FLOP_S,
+            shape=f"r,k,v,w ({B},{rH},{S},{rhd}) bf16, state f32")
+
+    timed = {
+        "rmsnorm": dict(
+            kernel=lambda: rmsnorm(x, sc, eps=cfg.norm_eps),
+            plain=lambda: ref.rmsnorm(x, sc, cfg.norm_eps), library=rms_lib,
+            bytes=(2 * rows * d + d) * es, ops=4 * rows * d, peak=F32_FLOP_S,
+            shape=f"x ({rows},{d}) bf16"),
+        "swiglu": dict(
+            kernel=lambda: swiglu(g, u), plain=lambda: ref.swiglu(g, u),
+            library=lambda: F.silu(g) * u,
+            bytes=3 * rows * dff * es, ops=5 * rows * dff, peak=F32_FLOP_S,
+            shape=f"gate, up ({rows},{dff}) bf16"),
+        "flash_attention": dict(
+            kernel=lambda: flash_attention(q, k, v, causal=True),
+            plain=lambda: ref.flash_attention(q, k, v, causal=True), library=sdpa,
+            bytes=(2 * B * H * TIME_S * hd + 2 * B * Hkv * TIME_S * hd) * es,
+            ops=4 * B * H * hd * pairs, peak=BF16_TENSOR_FLOP_S,
+            shape=f"q ({B},{H},{TIME_S},{hd}) k,v ({B},{Hkv},{TIME_S},{hd}) bf16 causal"),
+        "wkv6": wkv6_timed(TIME_S),
+        "wkv6 decode": wkv6_timed(1),
+    }
+    results = {}
+    for name, t in timed.items():
+        ms = time_ms(t["kernel"])
+        plain_ms = time_ms(t["plain"])
+        lib_ms = time_ms(t["library"]) if t["library"] is not None else None
+        byte_ms = t["bytes"] / HBM_BYTES_S * 1e3
+        op_ms = t["ops"] / t["peak"] * 1e3
+        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=max(byte_ms, op_ms),
+                             bound_by="bytes" if byte_ms >= op_ms else "operations")
+        print(f"[time/{name}] {t['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
+              f"{t['bytes']} B, {t['ops']} ops)")
+
+    # ---- 4. 2-layer full-width forwards: card (kernels) vs CPU (plain) ------
+    forward_phase("granite", cfg, dev,
+                  {"rmsnorm": 5, "swiglu": 2, "flash_attention": 2, "wkv6": 0})
+    forward_phase("rwkv6", rcfg, dev,
+                  {"rmsnorm": 5, "swiglu": 0, "flash_attention": 0, "wkv6": 2})
+
+    # ---- 5. serve full granite-3-2b, then full rwkv6-7b ---------------------
+    granite = serve_phase("granite", cfg, dev, lambda L, prefill: {
+        "rmsnorm": 2 * L + 1, "swiglu": L, "flash_attention": L if prefill else 0,
+        "wkv6": 0})
+    rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: {
+        "rmsnorm": 2 * L + 1, "swiglu": 0, "flash_attention": 0, "wkv6": L})
 
     # ---- result --------------------------------------------------------------
     kernels = []
@@ -368,7 +453,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": granite[name] + rwkv6[name],
             "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

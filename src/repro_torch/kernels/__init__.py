@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the serving path, their plain PyTorch
+"""Hand-written Hopper kernels of the serving paths, their plain PyTorch
 versions (``ref``) and the device dispatch (``ops``).
 
 =================  ==============================  =================================
@@ -7,6 +7,7 @@ kernel             CUDA source                     replaces (TPU kernel)
 rmsnorm            csrc/rmsnorm.cu                 repro/kernels/rmsnorm.py
 swiglu             csrc/swiglu.cu                  repro/kernels/swiglu.py
 flash_attention    csrc/flash_attention.cu         repro/kernels/flash_attention.py
+wkv6               csrc/wkv6.cu                    repro/kernels/rwkv6_scan.py
 =================  ==============================  =================================
 
 Each wrapper module holds a :class:`~repro_torch.kernels.build.CudaKernel`
@@ -16,10 +17,12 @@ from . import flash_attention as _flash_attention_mod
 from . import ops, ref  # noqa: F401
 from . import rmsnorm as _rmsnorm_mod
 from . import swiglu as _swiglu_mod
+from . import wkv6 as _wkv6_mod
 
-#: every kernel of the serving path, by name
+#: every kernel of the serving paths, by name
 KERNELS = {
     "rmsnorm": _rmsnorm_mod.KERNEL,
     "swiglu": _swiglu_mod.KERNEL,
     "flash_attention": _flash_attention_mod.KERNEL,
+    "wkv6": _wkv6_mod.KERNEL,
 }

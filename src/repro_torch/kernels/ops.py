@@ -1,4 +1,4 @@
-"""Dispatch for the kernels on the serving path, by the tensor's device.
+"""Dispatch for the kernels on the serving paths, by the tensor's device.
 
 The counterpart of ``repro/kernels/ops.py`` with its ``ref|pallas`` switch
 replaced by the device: a CPU tensor takes the plain version, a CUDA tensor
@@ -10,6 +10,10 @@ raises).  The reference's routing rules stay as they are:
   reference: no kernel is involved there in either package;
 * on the CPU, prefill with more than ``FLASH_CHUNK_THRESHOLD`` keys takes
   the chunked online-softmax version, as the reference's ``ref`` backend.
+
+``rwkv6_scan`` has no routing rule: the kernel takes every sequence
+length, where the reference falls back to its oracle when ``S`` is not a
+multiple of the Pallas chunk (``repro/kernels/ops.py:147``).
 """
 from __future__ import annotations
 
@@ -21,8 +25,10 @@ from . import ref
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .rmsnorm import rmsnorm  # noqa: F401
 from .swiglu import swiglu  # noqa: F401
+from .wkv6 import rwkv6_scan  # noqa: F401
 
-__all__ = ["rmsnorm", "swiglu", "flash_attention", "FLASH_CHUNK_THRESHOLD", "FLASH_CHUNK"]
+__all__ = ["rmsnorm", "swiglu", "flash_attention", "rwkv6_scan", "FLASH_CHUNK_THRESHOLD",
+           "FLASH_CHUNK"]
 
 #: key length above which the plain path switches to the chunked
 #: online-softmax attention (never materialises the S x T logits)

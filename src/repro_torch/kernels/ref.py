@@ -8,12 +8,12 @@ each hand-written kernel with on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "flash_attention", "flash_attention_chunked"]
+__all__ = ["rmsnorm", "swiglu", "flash_attention", "flash_attention_chunked", "rwkv6_scan"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -104,3 +104,32 @@ def flash_attention_chunked(
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         outs.append((acc / l[..., None]).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def rwkv6_scan(
+    r: torch.Tensor,  # (B, H, S, hd)
+    k: torch.Tensor,  # (B, H, S, hd)
+    v: torch.Tensor,  # (B, H, S, hd)
+    w: torch.Tensor,  # (B, H, S, hd) decay in (0, 1), data-dependent
+    u: torch.Tensor,  # (H, hd) bonus for the current token
+    state: Optional[torch.Tensor] = None,  # (B, H, hd, hd); None: zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 linear-attention recurrence (Finch, arXiv:2404.05892)::
+
+        y_t = r_t @ (S_t + diag(u) k_t v_t^T)
+        S_{t+1} = diag(w_t) S_t + k_t v_t^T
+
+    Returns (y in r's dtype, final state in f32); math in f32, one step at
+    a time as the oracle's ``lax.scan``."""
+    B, H, S, hd = r.shape
+    r32, k32, v32, w32 = (a.float() for a in (r, k, v, w))
+    u32 = u.float()[None, :, :, None]
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    ys = []
+    for t in range(S):
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]  # (B, H, hd_k, hd_v)
+        ys.append(torch.einsum("bhi,bhij->bhj", r32[:, :, t], s + u32 * kv))
+        s = w32[:, :, t, :, None] * s + kv
+    y = torch.stack(ys, dim=2) if ys else r32.new_zeros((B, H, 0, hd))
+    return y.to(r.dtype), s

@@ -3,9 +3,11 @@
 The single-server path of ``repro/launch/serve.py``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu --requests 5
 
+It serves the dense (granite-3-2b) and ssm (rwkv6-7b) families.
 Weights are random (``init_params`` with seed 0, as the reference's
 ``jax.random.key(0)``); prompts are drawn from ``--seed`` with the
 reference's lengths (4 to 19 tokens).  It runs on ``cuda`` unless

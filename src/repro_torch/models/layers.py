@@ -1,8 +1,9 @@
 """Shared building blocks (plain functions on dict params).
 
 The counterpart of ``repro/models/layers.py``.  Dense weights keep the JAX
-layout ``w: (d_in, d_out)``; normalisation and RoPE run in float32; the
-norm goes through ``kernels.ops`` so the card runs the hand-written kernel.
+layout ``w: (d_in, d_out)``; normalisation and RoPE run in float32.
+rmsnorm goes through ``kernels.ops`` so the card runs the hand-written
+kernel; group_norm has no kernel in either package and stays plain.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "rope_freqs", "apply_rope"]
+__all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "group_norm", "rope_freqs",
+           "apply_rope"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, dtype: torch.dtype,
@@ -39,6 +41,18 @@ def rmsnorm_init(d: int, *, dtype: torch.dtype, device: torch.device) -> Dict[st
 
 def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ops.rmsnorm(x, p["scale"], eps=eps)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-group (e.g. per-head) normalisation over the last dim, no affine,
+    in f32.  The variance is the population one (``correction=0``), as
+    ``jnp.var`` takes it; ``torch.var``'s default would divide by n - 1."""
+    *lead, d = x.shape
+    g = x.reshape(*lead, num_groups, d // num_groups).float()
+    mean = g.mean(dim=-1, keepdim=True)
+    var = g.var(dim=-1, keepdim=True, correction=0)
+    out = (g - mean) * torch.rsqrt(var + eps)
+    return out.to(x.dtype).reshape(*lead, d)
 
 
 # --------------------------------------------------------------------------

@@ -1,17 +1,26 @@
-"""Model assembly for the dense family: init / forward / decode.
+"""Model assembly for the dense and ssm families: init / forward / decode.
 
-The counterpart of ``repro/models/model.py`` for ``family="dense"``:
-``[rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L``, then the final
-norm and the (tied or separate) vocabulary head.  The reference stacks the
-layers and runs them under ``lax.scan``; here ``params["layers"]`` is a list
-of per-layer dicts and ``forward`` is a Python loop over it.  Other
-families (moe, ssm, hybrid, vlm, audio) are later slices of the port.
+The counterpart of ``repro/models/model.py`` for two families:
 
-Parameters are nested dicts of tensors with the reference's names and the
-JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an explicit
-``torch.Generator`` with the reference's distributions and scales.  The
-decode state keeps the reference's ``(L, B, Hkv, T, hd)`` caches and is
-updated in place.
+  dense        : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
+  ssm (rwkv6)  : [rmsnorm -> time-mix -> rmsnorm -> channel-mix] x L
+
+then the final norm and the (tied or separate) vocabulary head.  The
+reference stacks the layers and runs them under ``lax.scan``; here
+``params["layers"]`` is a list of per-layer dicts and ``forward`` is a
+Python loop over it.  Other families (moe, hybrid, vlm, audio) are later
+slices of the port.
+
+Parameters are nested dicts of tensors with the reference's names, dtypes
+and the JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an
+explicit ``torch.Generator`` with the reference's distributions and scales.
+The decode state keeps the reference's stacked ``(L, B, ...)`` leaves:
+``{"k", "v"}`` caches of ``(L, B, Hkv, T, hd)`` for dense, and
+``{"rwkv": {"tmix_x": (L, B, d), "cmix_x": (L, B, d), "wkv": (L, B, H, hd,
+hd) f32}}`` for ssm.  Where the reference returns a new state, ``forward``
+writes the one it is given in place and returns it: each layer's K/V at
+``cache_pos``, or each layer's ``tmix_x``, ``cmix_x`` and ``wkv`` for every
+lane, after that layer has read them.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from ..device import resolve_device
 from .attention import attention, attn_init
 from .layers import dense, rmsnorm, rmsnorm_init
 from .mlp import mlp, mlp_init
+from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
 
 __all__ = ["init_params", "init_decode_state", "forward", "apply_head", "decode_step",
            "torch_dtype"]
@@ -36,10 +46,10 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense family; {cfg.family!r} is not "
-            f"ported yet (ROADMAP queue A)")
+            f"{cfg.name}: the port serves the dense and ssm families; {cfg.family!r} "
+            f"is not ported yet (ROADMAP queue A)")
 
 
 # --------------------------------------------------------------------------
@@ -48,6 +58,14 @@ def _check_family(cfg: ModelConfig) -> None:
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
                 device: torch.device) -> Dict:
     kw = dict(dtype=dtype, device=device)
+    if cfg.family == "ssm":  # rwkv6
+        p = rwkv6_init(gen, cfg, **kw)
+        return {
+            "ln1": rmsnorm_init(cfg.d_model, **kw),
+            "tmix": p["tmix"],
+            "ln2": rmsnorm_init(cfg.d_model, **kw),
+            "cmix": p["cmix"],
+        }
     return {
         "ln1": rmsnorm_init(cfg.d_model, **kw),
         "attn": attn_init(gen, cfg, **kw),
@@ -84,11 +102,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> 
 # decode state
 # --------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device: Device = "cuda") -> Dict[str, torch.Tensor]:
+                      device: Device = "cuda") -> Dict:
+    """Zeros in the reference's layout (``max_seq`` is unused for ssm)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
     dtype = torch_dtype(cfg)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        one = rwkv6_state_init(cfg, batch, dtype=dtype, device=dev)
+        return {"rwkv": {k: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
+                         for k, a in one.items()}}
+    shape = (L, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -105,29 +129,52 @@ def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return logits.float()
 
 
+def _rwkv_layer_body(cfg: ModelConfig, layer: Dict, x: torch.Tensor,
+                     state: Optional[Dict[str, torch.Tensor]]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    st = state or {}
+    h, last_t, wkv = rwkv6_time_mix(
+        layer["tmix"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
+        last_x=st.get("tmix_x"), wkv_state=st.get("wkv"))
+    x = x + h
+    h, last_c = rwkv6_channel_mix(
+        layer["cmix"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps),
+        last_x=st.get("cmix_x"))
+    return x + h, {"tmix_x": last_t, "cmix_x": last_c, "wkv": wkv}
+
+
 def forward(
     cfg: ModelConfig,
     params: Dict,
     batch: Dict[str, torch.Tensor],
     *,
-    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache: Optional[Dict] = None,
     cache_pos: int = 0,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns ((B, S, vocab_size) f32 logits, cache).  ``batch["tokens"]``
     is (B, S) on the params' device; ``cache``, when given, is written in
-    place at ``cache_pos`` and returned."""
+    place (K/V at ``cache_pos``; the recurrent state of every lane) and
+    returned."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     B, S, _ = x.shape
-    positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
 
-    for i, layer in enumerate(params["layers"]):
-        kv = None if cache is None else (cache["k"][i], cache["v"][i])
-        h, _ = attention(layer["attn"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
-                         positions=positions, kv_cache=kv, cache_pos=cache_pos)
-        x = x + h
-        x = x + mlp(layer["ffn"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps))
+    if cfg.family == "ssm":
+        for i, layer in enumerate(params["layers"]):
+            st = None if cache is None else {k: a[i] for k, a in cache["rwkv"].items()}
+            x, new_st = _rwkv_layer_body(cfg, layer, x, st)
+            if cache is not None:
+                for k, a in cache["rwkv"].items():
+                    a[i] = new_st[k]
+    else:
+        positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
+        for i, layer in enumerate(params["layers"]):
+            kv = None if cache is None else (cache["k"][i], cache["v"][i])
+            h, _ = attention(layer["attn"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
+                             positions=positions, kv_cache=kv, cache_pos=cache_pos)
+            x = x + h
+            x = x + mlp(layer["ffn"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps))
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
@@ -137,12 +184,13 @@ def forward(
 def decode_step(
     cfg: ModelConfig,
     params: Dict,
-    state: Dict[str, torch.Tensor],
+    state: Dict,
     tokens: torch.Tensor,  # (B, 1)
     cache_pos: int,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token of autoregressive decode against the serve state (written
-    in place at ``cache_pos`` for every lane)."""
+) -> Tuple[torch.Tensor, Dict]:
+    """One token of autoregressive decode against the serve state, which is
+    written in place for every lane (K/V at ``cache_pos``, or the recurrent
+    state advanced by one token)."""
     logits, state = forward(cfg, params, {"tokens": tokens}, cache=state,
                             cache_pos=cache_pos)
     return logits[:, -1], state

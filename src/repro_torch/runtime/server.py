@@ -7,12 +7,19 @@ weights and prompts:
 * requests queue up; the server keeps ``batch_size`` decode slots and
   refills a free slot from the queue before every engine step;
 * prefill runs the prompt batched across the full slot dimension (the
-  other lanes hold zeros) and keeps only that slot's lane of the new KV
-  state, its argmax being the request's first token;
+  other lanes hold zeros) and keeps only that slot's lane of the new
+  state, its argmax being the request's first token.  A recurrent (ssm)
+  prefill starts from the live decode state, as the reference's does: the
+  slot's ``wkv``, ``tmix_x`` and ``cmix_x`` carry into the prompt;
 * an engine step decodes one micro-batch per distinct slot position, each
-  at that position, for every lane.  A lane that is further along gets the
-  micro-batch's K/V written at a position of its history.  The reference
-  does the same (ROADMAP queue C); the port mirrors it.
+  at that position, for every lane.
+
+The reference's schedule has three defects (ROADMAP queue C) that the port
+mirrors token for token: a lane that is further along gets another
+micro-batch's K/V written at a position of its history; a recurrent lane in
+a later micro-batch is advanced again with the same pending token; and a
+refilled recurrent slot starts its prompt from the previous request's final
+state and whatever idle decodes wrote there.
 
 Every request carries a :class:`RequestTiming` record on the server's
 ``clock``, reported per request by :meth:`BatchedServer.drain_report`.
@@ -95,12 +102,24 @@ class _Slot:
     generated: List[int] = field(default_factory=list)
 
 
+def _tree_map(tree: Dict, fn: Callable[[torch.Tensor], torch.Tensor]) -> Dict:
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _tree_zip(fn: Callable[[torch.Tensor, torch.Tensor], None], a: Dict, b: Dict) -> None:
+    for k, v in a.items():
+        if isinstance(v, dict):
+            _tree_zip(fn, v, b[k])
+        else:
+            fn(v, b[k])
+
+
 def _percentile(vals: List[float], p: float) -> float:
     return float(np.percentile(np.asarray(vals, np.float64), p)) if vals else 0.0
 
 
 class BatchedServer:
-    """Continuous-batching server over the port's dense decoder.
+    """Continuous-batching server over the port's dense and rwkv6 decoders.
 
     ``params`` must lie on ``device`` (``cuda`` unless the caller passes
     another device; the constructor raises if CUDA is asked for and absent).
@@ -157,7 +176,7 @@ class BatchedServer:
 
     @torch.no_grad()
     def _prefill_into_slot(self, slot_idx: int, rid: int, prompt: np.ndarray) -> None:
-        """Run the prompt through the model, writing K/V for this slot."""
+        """Run the prompt through the model, writing this slot's state."""
         rec = self.records[rid]
         rec.prefill_start_s = self.clock()
         S = len(prompt)
@@ -165,7 +184,13 @@ class BatchedServer:
         # of the new state is kept (_merge_slot)
         toks = np.zeros((self.scfg.batch_size, S), np.int64)
         toks[slot_idx] = prompt
-        scratch = init_decode_state(self.cfg, self.scfg.batch_size, S, device=self.device)
+        if self.cfg.family == "ssm":
+            # from the live state, as the reference prefills from self.state;
+            # on a copy, since forward writes every lane in place
+            scratch = _tree_map(self.state, torch.clone)
+        else:
+            scratch = init_decode_state(self.cfg, self.scfg.batch_size, S,
+                                        device=self.device)
         logits, scratch = forward(self.cfg, self.params,
                                   {"tokens": torch.from_numpy(toks).to(self.device)},
                                   cache=scratch, cache_pos=0)
@@ -189,13 +214,21 @@ class BatchedServer:
         self.results[slot.request_id] = slot.generated
         self.slots[slot_idx] = _Slot()
 
-    def _merge_slot(self, prefill_state: Dict[str, torch.Tensor], slot_idx: int) -> None:
-        """Install this slot's lane of a prefill's K/V: positions [0, S) of
-        the lane are replaced, the rest of the lane and the other lanes are
-        kept, as the reference's ``_merge_slot`` keeps them."""
-        for key, new in prefill_state.items():
-            S = new.shape[3]
-            self.state[key][:, slot_idx, :, :S] = new[:, slot_idx]
+    def _merge_slot(self, prefill_state: Dict, slot_idx: int) -> None:
+        """Install this slot's lane of a prefill's state, as the reference's
+        ``_merge_slot`` does; every leaf has the batch dim right after the
+        layer dim.  A leaf of the live state's shape (the recurrent state)
+        has the slot's whole lane replaced.  A prefill K/V cache is only S
+        positions long: positions [0, S) of the lane are replaced and the
+        rest of the lane is kept.  The other lanes are kept."""
+
+        def merge(live: torch.Tensor, new: torch.Tensor) -> None:
+            if new.shape == live.shape:
+                live[:, slot_idx] = new[:, slot_idx]
+            else:
+                live[:, slot_idx, :, :new.shape[3]] = new[:, slot_idx]
+
+        _tree_zip(merge, self.state, prefill_state)
 
     def _refill(self) -> None:
         for i, slot in enumerate(self.slots):

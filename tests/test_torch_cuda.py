@@ -16,12 +16,19 @@ from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
+from repro_torch.kernels.wkv6 import rwkv6_scan
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+#: WKV6 y as tests/test_kernels.py holds the Pallas kernel (f32) and as the
+#: other kernels (bf16); the f32 state
+WKV6_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+WKV6_STATE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+                  torch.bfloat16: dict(rtol=1e-3, atol=1e-4)}
 
 
 @pytest.fixture
@@ -106,3 +113,47 @@ def test_decode_with_mask_launches_no_kernel(card):
     before = KERNELS["flash_attention"].launches
     ops.flash_attention(q, kv, kv, causal=False, kv_mask=mask)
     assert KERNELS["flash_attention"].launches == before
+
+
+def _wkv6_inputs(card, B, H, S, hd, dtype):
+    """r, k, v, the decay by the model's formula (near 1), u and a non-zero
+    initial state."""
+    r = _randn(card, B, H, S, hd, dtype=dtype, mul=0.5)
+    k = _randn(card, B, H, S, hd, dtype=dtype, mul=0.5, seed=1)
+    v = _randn(card, B, H, S, hd, dtype=dtype, seed=2)
+    w_log = _randn(card, B, H, S, hd, dtype=torch.float32, mul=0.5, add=-6.0, seed=3)
+    w = torch.exp(-torch.exp(w_log)).to(dtype)
+    u = _randn(card, H, hd, dtype=torch.float32, mul=0.1, seed=4)
+    s0 = _randn(card, B, H, hd, hd, dtype=torch.float32, seed=5)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,hd", [(4, 64, 200, 64), (4, 64, 1, 64), (1, 4, 37, 16),
+                                      (2, 2, 300, 32)])
+def test_wkv6_kernel_matches_plain(card, B, H, S, hd, dtype):
+    args = _wkv6_inputs(card, B, H, S, hd, dtype)
+    before = KERNELS["wkv6"].launches
+    y, s = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert KERNELS["wkv6"].launches == before + 1
+    y_ref, s_ref = ref.rwkv6_scan(*args)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **WKV6_TOL[dtype])
+    torch.testing.assert_close(s, s_ref, **WKV6_STATE_TOL[dtype])
+
+
+def test_wkv6_kernel_unaligned_and_zero_state(card):
+    B, H, S, hd = 1, 2, 45, 64
+    n = B * H * S * hd
+
+    def odd(seed):  # contiguous, one element past a 16-byte boundary
+        return _randn(card, n + 1, dtype=torch.bfloat16, mul=0.5, seed=seed)[1:].view(B, H, S, hd)
+
+    r, k, v = odd(0), odd(1), odd(2)
+    w = torch.full((B, H, S, hd), 0.99, dtype=torch.bfloat16, device=card)
+    u = _randn(card, H, hd, dtype=torch.float32, mul=0.1, seed=4)
+    y, s = ops.rwkv6_scan(r, k, v, w, u)
+    y_ref, s_ref = ref.rwkv6_scan(r, k, v, w, u)
+    torch.testing.assert_close(y.float(), y_ref.float(), **WKV6_TOL[torch.bfloat16])
+    torch.testing.assert_close(s, s_ref, **WKV6_STATE_TOL[torch.bfloat16])

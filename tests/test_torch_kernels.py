@@ -4,7 +4,7 @@ Every input is drawn with numpy from a fixed seed and handed to both
 packages.  Each plain PyTorch version (what a kernel wrapper runs for a CPU
 tensor) is held to ``repro.kernels.ref`` and to the Pallas kernel in
 interpret mode, at the shapes of ``tests/test_kernels.py`` and with its
-tolerances (f32 1e-5, bf16 2e-2, flash f32 2e-4).  The wrappers' input
+tolerances (f32 1e-5, bf16 2e-2, flash f32 2e-4, WKV6 f32 1e-4).  The wrappers' input
 checks are exercised here too; the CUDA kernels themselves run only on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -14,15 +14,20 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention_pallas, rmsnorm_pallas, swiglu_pallas
+from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
+from repro_torch.kernels.wkv6 import rwkv6_scan
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+#: tests/test_kernels.py's WKV6 tolerance; bf16 y as the other kernels, and
+#: the f32 state from bf16 inputs within 1e-4 as in f32
+WKV6_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -132,12 +137,91 @@ def test_ops_flash_dispatch_matches_reference_ops():
     assert torch.equal(got, want)
 
 
+def _wkv6_inputs(rng, B, H, S, hd, dtype):
+    """r, k, v, the decay as the model makes it (exp(-exp(w0 + lora)) with
+    w0 near -6, so near 1), u and a non-zero initial state, as jax/torch
+    pairs."""
+    r, k = _pair(rng, (B, H, S, hd), dtype, mul=0.5), _pair(rng, (B, H, S, hd), dtype, mul=0.5)
+    v = _pair(rng, (B, H, S, hd), dtype)
+    w_log = rng.normal(size=(B, H, S, hd)) * 0.5 - 6.0 + rng.normal(size=(1, H, 1, hd)) * 2
+    w = np.exp(-np.exp(w_log)).astype(np.float32)
+    w = jnp.asarray(w, getattr(jnp, dtype)), torch.from_numpy(w).to(getattr(torch, dtype))
+    u = _pair(rng, (H, hd), "float32", mul=0.1)
+    s0 = _pair(rng, (B, H, hd, hd), "float32")
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,hd", [(1, 2, 64, 16), (2, 3, 128, 32), (2, 4, 24, 16),
+                                      (1, 2, 1, 64), (2, 1, 40, 64)])
+def test_rwkv6_scan_plain_matches_reference(B, H, S, hd, dtype):
+    rng = np.random.default_rng(6)
+    pairs = _wkv6_inputs(rng, B, H, S, hd, dtype)
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, s = rwkv6_scan(*targs)
+    assert y.dtype == targs[0].dtype and s.dtype == torch.float32
+    tol = WKV6_TOL[dtype]
+    want_y, want_s = jref.rwkv6_scan(*jargs)
+    np.testing.assert_allclose(_np(y), _np(want_y), **tol)
+    np.testing.assert_allclose(_np(s), _np(want_s), **WKV6_TOL["float32"])
+    # several chunks where S allows, so the state crosses the Pallas grid
+    pal_y, pal_s = rwkv6_scan_pallas(*jargs, chunk=32 if S % 32 == 0 else S, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(pal_y), **tol)
+    np.testing.assert_allclose(_np(s), _np(pal_s), **WKV6_TOL["float32"])
+
+
+def test_rwkv6_scan_state_none_is_zeros():
+    rng = np.random.default_rng(7)
+    r, k, v, w, u, _ = (p[1] for p in _wkv6_inputs(rng, 2, 2, 9, 16, "float32"))
+    y0, s0 = rwkv6_scan(r, k, v, w, u)
+    y1, s1 = rwkv6_scan(r, k, v, w, u, torch.zeros(2, 2, 16, 16))
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("split", [1, 17, 32])
+def test_rwkv6_scan_state_chaining(split):
+    """Two runs chained through the returned state equal one run (the
+    decode path: a prompt, then one token at a time)."""
+    rng = np.random.default_rng(8)
+    r, k, v, w, u, s0 = (p[1] for p in _wkv6_inputs(rng, 1, 2, 64, 16, "float32"))
+    y_full, s_full = ops.rwkv6_scan(r, k, v, w, u, s0)
+    head = [a[:, :, :split].contiguous() for a in (r, k, v, w)]
+    tail = [a[:, :, split:].contiguous() for a in (r, k, v, w)]
+    y1, s1 = ops.rwkv6_scan(*head, u, s0)
+    y2, s2 = ops.rwkv6_scan(*tail, u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=2), y_full, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, s_full, rtol=1e-5, atol=1e-5)
+
+
+def test_rwkv6_scan_wrapper_checks_raise():
+    x, u = torch.ones(1, 2, 8, 16), torch.ones(2, 16)
+    with pytest.raises(TypeError):
+        rwkv6_scan(x.half(), x.half(), x.half(), x.half(), u)
+    with pytest.raises(TypeError):
+        rwkv6_scan(x, x, x.bfloat16(), x, u)
+    with pytest.raises(ValueError):
+        rwkv6_scan(x, x, x, torch.ones(1, 2, 9, 16), u)
+    with pytest.raises(ValueError, match="head_dim"):
+        rwkv6_scan(*[torch.ones(1, 2, 8, 24)] * 4, torch.ones(2, 24))
+    with pytest.raises(ValueError, match="u as"):
+        rwkv6_scan(x, x, x, x, u.bfloat16())
+    with pytest.raises(ValueError, match="u as"):
+        rwkv6_scan(x, x, x, x, torch.ones(3, 16))
+    with pytest.raises(ValueError, match="state as"):
+        rwkv6_scan(x, x, x, x, u, torch.ones(1, 2, 16, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, x, u)
+    with pytest.raises(ValueError):
+        rwkv6_scan(*[x.to("meta")] * 4, u.to("meta"))
+
+
 def test_plain_versions_do_not_count_launches():
     before = {n: k.launches for n, k in KERNELS.items()}
     x = torch.ones(3, 16)
     rmsnorm(x, torch.ones(16))
     swiglu(x, x)
     flash_attention(torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16), torch.ones(1, 1, 4, 16))
+    rwkv6_scan(*[torch.ones(1, 2, 4, 16)] * 4, torch.ones(2, 16))
     assert {n: k.launches for n, k in KERNELS.items()} == before
 
 
