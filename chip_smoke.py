@@ -15,27 +15,38 @@ fails:
 2. check: each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, in bf16 and f32, within the tolerances in ``TOL``
    (``[check/wkv6]``: B 4, H 64, hd 64, S in 1, 128, 200 and 512, from a
-   non-zero random state, with the decay drawn by the model's formula);
+   non-zero random state, with the decay drawn by the model's formula;
+   ``[check/mamba2_ssd]``: B 4, H 80, P 64, N 64, S in 1, 37, 128, 200 and
+   512, from a non-zero state and, at S 1 and 200, from none (zeros), x, B
+   and C as views of one buffer as the model hands them in, once at an odd
+   element offset; flash attention at
+   zamba2's head dim 80 too);
 3. time: each kernel, its plain version, and one PyTorch call computing the
    same function (``library_ms``; the port never calls it; none exists for
-   WKV6), with CUDA events at the largest serving shape, and WKV6 at the
-   decode shape too; the bound is computed from the shapes (bytes over
-   3.35 TB/s, operations over the H100's peak rate);
-4. forward: a 2-layer, full-width granite-3-2b forward and a 2-layer,
-   full-width rwkv6-7b forward (f32), each with the same weights on the
-   card (kernels) and on the CPU (plain versions): the max logit error, the
-   argmax agreement and the launch counts;
-5. serve: full granite-3-2b (40 layers, bf16) and then full rwkv6-7b (32
-   layers, d 4096, bf16), random weights from a seed, each through
+   WKV6 or the SSD scan), with CUDA events at the largest serving shape,
+   and the two scans at the decode shape too; flash attention at hd 64
+   (granite) and hd 80 (zamba2); the bound is computed from the shapes
+   (bytes over 3.35 TB/s, operations over the H100's peak rate).  The
+   tensors of phases 2 and 3 are freed before phase 4;
+4. forward: a 2-layer, full-width granite-3-2b forward, a 2-layer,
+   full-width rwkv6-7b forward and a 2-layer, full-width zamba2-2.7b
+   forward with the shared block after layer 1 (all f32), each with the
+   same weights on the card (kernels) and on the CPU (plain versions): the
+   max logit error, the argmax agreement and the launch counts;
+5. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
+   d 4096, bf16) and full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
+   block every 6th layer, bf16), random weights from a seed, each through
    ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
    with prompt lengths from ``numpy.random.default_rng(0)`` in [64, 512];
    every request must finish with 16 tokens and each kernel's launch count
-   must grow by what the schedule predicts.
+   must grow by what the schedule predicts.  Each serve reports its own
+   peak memory: the peak since just before its drain, the memory allocated
+   before its ``init_params``, and the peak above that.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
-over the two serves of phase 5, each counted from 0 just before its drain;
-``max_abs_err`` the largest of phase 2's checks; the times from phase 3),
-the card's name and power limit as ``nvidia-smi --query-gpu=name,
+over the three serves of phase 5, each counted from 0 just before its
+drain; ``max_abs_err`` the largest of phase 2's checks; the times from
+phase 3), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -59,6 +70,11 @@ TOL = {
     "flash_attention": {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)},
     # y; f32 as tests/test_kernels.py holds the Pallas kernel to its oracle
     "wkv6": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+    # y and the state, f32 in both cases, as tests/test_kernels.py holds the
+    # Pallas kernel to its oracle.  From bf16 x, B and C both sides widen
+    # the same values to f32 exactly and run the same f32 recurrence, so
+    # they differ only in the order of the f32 sums, as from f32 inputs.
+    "mamba2_ssd": {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-4)},
 }
 #: the WKV6 final state (f32 in both cases), (rtol, atol) by input dtype
 WKV6_STATE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 1e-4)}
@@ -76,6 +92,7 @@ REPLACES = {
     "swiglu": "src/repro/kernels/swiglu.py:25",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:62",
+    "mamba2_ssd": "src/repro/kernels/mamba2_scan.py:62",
 }
 
 DEVICE = "cuda:0"
@@ -83,6 +100,7 @@ SERVE = dict(batch_size=4, max_seq=1024, max_new_tokens=16, requests=8,
              prompt_min=64, prompt_max=512)
 CHECK_S = (128, 200, 512)  # prompt lengths of the per-kernel checks
 WKV6_CHECK_S = (1,) + CHECK_S  # decode and prompt lengths
+SSD_CHECK_S = (1, 37) + CHECK_S  # decode, a ragged chunk, prompt lengths
 TIME_S = 512  # the longest prompt: the timed shapes
 
 
@@ -201,6 +219,8 @@ def serve_phase(name, cfg, dev, per_forward):
     from repro_torch.models import init_params
     from repro_torch.runtime import BatchedServer, ServerConfig
 
+    torch.cuda.synchronize()
+    before_init = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -231,6 +251,7 @@ def serve_phase(name, cfg, dev, per_forward):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: kern.launches for n, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
 
     rep = server.drain_report()
     prefills, decodes = predict_forwards(lens, scfg.batch_size, scfg.max_new_tokens,
@@ -242,7 +263,8 @@ def serve_phase(name, cfg, dev, per_forward):
           f"in {wall:.3f}s: {rep['throughput_tok_s']:.2f} tok/s, ttft_p50 "
           f"{rep['ttft_p50_s'] * 1e3:.2f} ms, latency p50 {rep['latency_p50_s'] * 1e3:.2f} ms "
           f"p99 {rep['latency_p99_s'] * 1e3:.2f} ms, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{peak / 2**30:.2f} GiB ({before_init / 2**30:.2f} GiB allocated before "
+          f"init_params, peak above that {(peak - before_init) / 2**30:.2f} GiB)")
     print(f"[serve/{name}] schedule: {prefills} prefills, {decodes} decode forwards; "
           f"launches {launches}, predicted {expect}")
     # prefills block the engine one at a time, so the rest of the drain is decode
@@ -264,13 +286,242 @@ def serve_phase(name, cfg, dev, per_forward):
     return launches
 
 
+def check_phase(dev, cfg, rcfg, zcfg):
+    """Phase 2: each kernel against its plain version on the card.  Returns
+    the largest abs error of each kernel."""
+    import torch
+
+    from repro_torch.kernels import KERNELS, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.swiglu import swiglu
+    from repro_torch.kernels.wkv6 import rwkv6_scan
+
+    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rH, rhd = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
+    B = SERVE["batch_size"]
+    randn, wkv6_inputs, ssd_inputs = make_inputs(dev, rcfg, zcfg)
+    max_err = {n: 0.0 for n in KERNELS}
+
+    def compare(name, got, want, dtype, label, tol=None):
+        torch.cuda.synchronize()
+        rtol, atol = tol or TOL[name][str(dtype).split(".")[-1]]
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        max_err[name] = max(max_err[name], err)
+        print(f"[check/{name}] {label} {str(dtype).split('.')[-1]} max_abs_err={err:.3e} "
+              f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {dtype}: kernel disagrees with its plain version")
+
+    zH, zhd = zcfg.num_heads, zcfg.head_dim
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in [B] + [B * s for s in CHECK_S]:  # decode rows, prefill rows
+            x = randn(rows, d, dtype=dtype)
+            sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
+            compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
+                    ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
+            g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
+            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
+        cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
+        cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
+        cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
+        cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
+        for b, h, hk, s, t, e, causal in cases:
+            q = randn(b, h, s, e, dtype=dtype, mul=0.5)
+            k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
+            v = randn(b, hk, t, e, dtype=dtype)
+            compare("flash_attention", flash_attention(q, k, v, causal=causal),
+                    ref.flash_attention(q, k, v, causal=causal), dtype,
+                    f"B={b} H={h} Hkv={hk} S={s} T={t} hd={e} causal={causal}")
+        for s in WKV6_CHECK_S:
+            args = wkv6_inputs(s, dtype)
+            (y, sT), (y_ref, sT_ref) = rwkv6_scan(*args), ref.rwkv6_scan(*args)
+            label = f"B={B} H={rH} S={s} hd={rhd}"
+            compare("wkv6", y, y_ref, dtype, label + " y")
+            compare("wkv6", sT, sT_ref, dtype, label + " state",
+                    tol=WKV6_STATE_TOL[str(dtype).split(".")[-1]])
+        ssd_cases = [(s, 0, False) for s in SSD_CHECK_S] + [(37, 1, False)]
+        ssd_cases += [(s, 0, True) for s in (1, 200)]  # state None: the kernel's zeros
+        for s, offset, zero_state in ssd_cases:
+            args = ssd_inputs(s, dtype, offset)
+            if zero_state:
+                args = args[:5]
+            (y, sT), (y_ref, sT_ref) = mamba2_ssd_scan(*args), ref.mamba2_ssd_scan(*args)
+            x = args[0]
+            label = (f"B={B} S={s} H={x.shape[2]} P={x.shape[3]} N={args[1].shape[-1]}"
+                     f"{' offset 1' if offset else ''}{' zero state' if zero_state else ''}")
+            compare("mamba2_ssd", y, y_ref, dtype, label + " y")
+            compare("mamba2_ssd", sT, sT_ref, dtype, label + " state")
+    return max_err
+
+
+def make_inputs(dev, rcfg, zcfg):
+    """Input makers of phases 2 and 3, on one generator seeded 0."""
+    import torch
+    import torch.nn.functional as F
+
+    B = SERVE["batch_size"]
+    rH, rhd = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype, mul=1.0, add=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * mul + add).to(dtype)
+
+    def wkv6_inputs(S, dtype):
+        """r, k, v, the decay by the model's formula (w0 drawn as rwkv6_init
+        draws it, plus a data-dependent term: w near 1), u and a non-zero
+        initial state."""
+        r, k = randn(B, rH, S, rhd, dtype=dtype, mul=0.5), randn(B, rH, S, rhd, dtype=dtype, mul=0.5)
+        v = randn(B, rH, S, rhd, dtype=dtype)
+        w0 = randn(rH, rhd, dtype=torch.float32, mul=0.1, add=-6.0)
+        w_log = w0[None, :, None, :] + randn(B, rH, S, rhd, dtype=torch.float32, mul=0.5)
+        w = torch.exp(-torch.exp(w_log)).to(dtype)
+        u = randn(rH, rhd, dtype=torch.float32, mul=0.1)
+        s0 = randn(B, rH, rhd, rhd, dtype=torch.float32)
+        return r, k, v, w, u, s0
+
+    def ssd_inputs(S, dtype, offset=0):
+        """x, B and C as zamba2's Mamba2 block hands them in: views of one
+        (B, S, d_in + 2N) buffer (``offset`` elements into a wider one);
+        dt = softplus of a normal draw, as the model makes it from its
+        projection and dt_bias 0, and decay = exp(-dt) (a_log 0); a
+        non-zero f32 initial state."""
+        P, N = zcfg.ssm.head_dim, zcfg.ssm.state_dim
+        d_in = zcfg.ssm.expand * zcfg.d_model
+        zH = d_in // P
+        buf = randn(B, S, d_in + 2 * N + offset, dtype=dtype, mul=0.5)[..., offset:]
+        x = buf[..., :d_in].reshape(B, S, zH, P)
+        Bm, Cm = buf[..., d_in:d_in + N], buf[..., d_in + N:]
+        dt = F.softplus(randn(B, S, zH, dtype=torch.float32))
+        s0 = randn(B, zH, P, N, dtype=torch.float32)
+        return x, Bm, Cm, torch.exp(-dt), dt, s0
+
+    return randn, wkv6_inputs, ssd_inputs
+
+
+def time_phase(dev, cfg, rcfg, zcfg):
+    """Phase 3: kernel, plain version and library call at the largest
+    serving shape (bf16).  Returns {name: times and bound}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.swiglu import swiglu
+    from repro_torch.kernels.wkv6 import rwkv6_scan
+
+    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rH, rhd = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
+    B = SERVE["batch_size"]
+    randn, wkv6_inputs, ssd_inputs = make_inputs(dev, rcfg, zcfg)
+    bf16, es = torch.bfloat16, 2
+    rows = B * TIME_S
+    x, sc = randn(rows, d, dtype=bf16), randn(d, dtype=bf16, mul=0.1, add=1.0)
+    g, u = randn(rows, dff, dtype=bf16), randn(rows, dff, dtype=bf16)
+    rms_lib = ((lambda: F.rms_norm(x, (d,), weight=sc, eps=cfg.norm_eps))
+               if hasattr(F, "rms_norm") else None)
+    pairs = TIME_S * (TIME_S + 1) // 2  # (query, key) pairs under the causal mask
+
+    def flash_timed(h, hkv, e):
+        """Causal flash attention at (B, h, 512, e), kv heads hkv.  Bytes: q,
+        k, v read and o written once.  Operations: QK^T and PV over the
+        causal pairs (4 e per pair), on the bf16 tensor cores."""
+        q = randn(B, h, TIME_S, e, dtype=bf16, mul=0.5)
+        k = randn(B, hkv, TIME_S, e, dtype=bf16, mul=0.5)
+        v = randn(B, hkv, TIME_S, e, dtype=bf16)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=hkv != h)
+
+        try:
+            sdpa()
+        except TypeError:  # a torch without enable_gqa has no one-call GQA attention
+            sdpa = None
+        return dict(
+            kernel=lambda: flash_attention(q, k, v, causal=True),
+            plain=lambda: ref.flash_attention(q, k, v, causal=True), library=sdpa,
+            bytes=(2 * B * h * TIME_S * e + 2 * B * hkv * TIME_S * e) * es,
+            ops=4 * B * h * e * pairs, peak=BF16_TENSOR_FLOP_S,
+            shape=f"q ({B},{h},{TIME_S},{e}) k,v ({B},{hkv},{TIME_S},{e}) bf16 causal")
+
+    def wkv6_timed(S):
+        """WKV6 at (B, 64, S, 64) bf16.  Bytes: r, k, v, w read and y written
+        once, u, and the f32 state read and written.  Operations per step
+        and head: y = r.S (2 hd^2), S <- w*S + k v^T (3 hd^2), and the u
+        bonus (r*u*k summed, times v, added: 5 hd), f32 on the CUDA cores."""
+        args = wkv6_inputs(S, bf16)
+        return dict(
+            kernel=lambda: rwkv6_scan(*args), plain=lambda: ref.rwkv6_scan(*args),
+            library=None,
+            bytes=5 * B * rH * S * rhd * es + rH * rhd * 4 + 2 * B * rH * rhd * rhd * 4,
+            ops=B * rH * S * (5 * rhd * rhd + 5 * rhd), peak=F32_FLOP_S,
+            shape=f"r,k,v,w ({B},{rH},{S},{rhd}) bf16, state f32")
+
+    def ssd_timed(S):
+        """The SSD scan at zamba2's widths (B 4, H 80, P 64, N 64), x, B and
+        C bf16 views of one (B, S, 5248) buffer, decay, dt and the state
+        f32.  Bytes: x, B, C, decay and dt read once, y (f32) written once,
+        the state read and written.  Operations per step and head: dt*x (P),
+        the outer product with B, the decay multiply and the add (3 P N),
+        and y = h C (2 P N), f32 on the CUDA cores."""
+        args = ssd_inputs(S, bf16)
+        zB, zS, zH, P = args[0].shape
+        N = args[1].shape[-1]
+        return dict(
+            kernel=lambda: mamba2_ssd_scan(*args), plain=lambda: ref.mamba2_ssd_scan(*args),
+            library=None,
+            bytes=(zB * zS * zH * P * es + 2 * zB * zS * N * es + 2 * zB * zS * zH * 4
+                   + 2 * zB * zH * P * N * 4 + zB * zS * zH * P * 4),
+            ops=zB * zS * zH * (5 * P * N + P), peak=F32_FLOP_S,
+            shape=f"x ({zB},{zS},{zH},{P}) B,C ({zB},{zS},{N}) bf16 views, "
+                  f"decay, dt, state f32")
+
+    timed = {
+        "rmsnorm": dict(
+            kernel=lambda: rmsnorm(x, sc, eps=cfg.norm_eps),
+            plain=lambda: ref.rmsnorm(x, sc, cfg.norm_eps), library=rms_lib,
+            bytes=(2 * rows * d + d) * es, ops=4 * rows * d, peak=F32_FLOP_S,
+            shape=f"x ({rows},{d}) bf16"),
+        "swiglu": dict(
+            kernel=lambda: swiglu(g, u), plain=lambda: ref.swiglu(g, u),
+            library=lambda: F.silu(g) * u,
+            bytes=3 * rows * dff * es, ops=5 * rows * dff, peak=F32_FLOP_S,
+            shape=f"gate, up ({rows},{dff}) bf16"),
+        "flash_attention": flash_timed(H, Hkv, hd),
+        "flash_attention hd80": flash_timed(zcfg.num_heads, zcfg.num_kv_heads, zcfg.head_dim),
+        "wkv6": wkv6_timed(TIME_S),
+        "wkv6 decode": wkv6_timed(1),
+        "mamba2_ssd": ssd_timed(TIME_S),
+        "mamba2_ssd decode": ssd_timed(1),
+    }
+    results = {}
+    for name, t in timed.items():
+        ms = time_ms(t["kernel"])
+        plain_ms = time_ms(t["plain"])
+        lib_ms = time_ms(t["library"]) if t["library"] is not None else None
+        byte_ms = t["bytes"] / HBM_BYTES_S * 1e3
+        op_ms = t["ops"] / t["peak"] * 1e3
+        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=max(byte_ms, op_ms),
+                             bound_by="bytes" if byte_ms >= op_ms else "operations")
+        print(f"[time/{name}] {t['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
+              f"{t['bytes']} B, {t['ops']} ops)")
+    return results
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               f"(src/repro_torch missing)", file=sys.stderr)
         return 1
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to drive",
@@ -278,11 +529,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS, build, ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.swiglu import swiglu
-    from repro_torch.kernels.wkv6 import rwkv6_scan
+    from repro_torch.kernels import KERNELS, build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -302,149 +549,37 @@ def main() -> int:
             if "ptxas info" in line or "spill" in line:
                 print(f"[build/{name}] {line.strip()}")
 
-    # ---- 2. check each kernel against its plain version on the card ---------
     cfg = get_config("granite-3-2b")
     rcfg = get_config("rwkv6-7b")
-    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rH, rhd = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
-    B = SERVE["batch_size"]
-    gen = torch.Generator(device=dev).manual_seed(0)
+    zcfg = get_config("zamba2-2.7b")
 
-    def randn(*shape, dtype, mul=1.0, add=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * mul + add).to(dtype)
-
-    def wkv6_inputs(S, dtype):
-        """r, k, v, the decay by the model's formula (w0 drawn as rwkv6_init
-        draws it, plus a data-dependent term: w near 1), u and a non-zero
-        initial state."""
-        r, k = randn(B, rH, S, rhd, dtype=dtype, mul=0.5), randn(B, rH, S, rhd, dtype=dtype, mul=0.5)
-        v = randn(B, rH, S, rhd, dtype=dtype)
-        w0 = randn(rH, rhd, dtype=torch.float32, mul=0.1, add=-6.0)
-        w_log = w0[None, :, None, :] + randn(B, rH, S, rhd, dtype=torch.float32, mul=0.5)
-        w = torch.exp(-torch.exp(w_log)).to(dtype)
-        u = randn(rH, rhd, dtype=torch.float32, mul=0.1)
-        s0 = randn(B, rH, rhd, rhd, dtype=torch.float32)
-        return r, k, v, w, u, s0
-
-    max_err = {n: 0.0 for n in KERNELS}
-
-    def compare(name, got, want, dtype, label, tol=None):
-        torch.cuda.synchronize()
-        rtol, atol = tol or TOL[name][str(dtype).split(".")[-1]]
-        err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
-        ok = ok and bool(torch.isfinite(got.float()).all())
-        max_err[name] = max(max_err[name], err)
-        print(f"[check/{name}] {label} {str(dtype).split('.')[-1]} max_abs_err={err:.3e} "
-              f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} {label} {dtype}: kernel disagrees with its plain version")
-
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in [B] + [B * s for s in CHECK_S]:  # decode rows, prefill rows
-            x = randn(rows, d, dtype=dtype)
-            sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
-            compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
-                    ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
-            g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
-            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
-        cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
-        cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
-        cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
-        for b, h, hk, s, t, e, causal in cases:
-            q = randn(b, h, s, e, dtype=dtype, mul=0.5)
-            k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
-            v = randn(b, hk, t, e, dtype=dtype)
-            compare("flash_attention", flash_attention(q, k, v, causal=causal),
-                    ref.flash_attention(q, k, v, causal=causal), dtype,
-                    f"B={b} H={h} Hkv={hk} S={s} T={t} hd={e} causal={causal}")
-        for s in WKV6_CHECK_S:
-            args = wkv6_inputs(s, dtype)
-            (y, sT), (y_ref, sT_ref) = rwkv6_scan(*args), ref.rwkv6_scan(*args)
-            label = f"B={B} H={rH} S={s} hd={rhd}"
-            compare("wkv6", y, y_ref, dtype, label + " y")
-            compare("wkv6", sT, sT_ref, dtype, label + " state",
-                    tol=WKV6_STATE_TOL[str(dtype).split(".")[-1]])
+    # ---- 2. check each kernel against its plain version on the card ---------
+    max_err = check_phase(dev, cfg, rcfg, zcfg)
 
     # ---- 3. time at the largest serving shape (bf16) -------------------------
-    bf16, es = torch.bfloat16, 2
-    rows = B * TIME_S
-    x, sc = randn(rows, d, dtype=bf16), randn(d, dtype=bf16, mul=0.1, add=1.0)
-    g, u = randn(rows, dff, dtype=bf16), randn(rows, dff, dtype=bf16)
-    q = randn(B, H, TIME_S, hd, dtype=bf16, mul=0.5)
-    k = randn(B, Hkv, TIME_S, hd, dtype=bf16, mul=0.5)
-    v = randn(B, Hkv, TIME_S, hd, dtype=bf16)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    try:
-        sdpa()
-    except TypeError:  # a torch without enable_gqa has no one-call GQA attention
-        sdpa = None
-    rms_lib = ((lambda: F.rms_norm(x, (d,), weight=sc, eps=cfg.norm_eps))
-               if hasattr(F, "rms_norm") else None)
-    pairs = TIME_S * (TIME_S + 1) // 2  # (query, key) pairs under the causal mask
-
-    def wkv6_timed(S):
-        """WKV6 at (B, 64, S, 64) bf16.  Bytes: r, k, v, w read and y written
-        once, u, and the f32 state read and written.  Operations per step
-        and head: y = r.S (2 hd^2), S <- w*S + k v^T (3 hd^2), and the u
-        bonus (r*u*k summed, times v, added: 5 hd), f32 on the CUDA cores."""
-        args = wkv6_inputs(S, bf16)
-        return dict(
-            kernel=lambda: rwkv6_scan(*args), plain=lambda: ref.rwkv6_scan(*args),
-            library=None,
-            bytes=5 * B * rH * S * rhd * es + rH * rhd * 4 + 2 * B * rH * rhd * rhd * 4,
-            ops=B * rH * S * (5 * rhd * rhd + 5 * rhd), peak=F32_FLOP_S,
-            shape=f"r,k,v,w ({B},{rH},{S},{rhd}) bf16, state f32")
-
-    timed = {
-        "rmsnorm": dict(
-            kernel=lambda: rmsnorm(x, sc, eps=cfg.norm_eps),
-            plain=lambda: ref.rmsnorm(x, sc, cfg.norm_eps), library=rms_lib,
-            bytes=(2 * rows * d + d) * es, ops=4 * rows * d, peak=F32_FLOP_S,
-            shape=f"x ({rows},{d}) bf16"),
-        "swiglu": dict(
-            kernel=lambda: swiglu(g, u), plain=lambda: ref.swiglu(g, u),
-            library=lambda: F.silu(g) * u,
-            bytes=3 * rows * dff * es, ops=5 * rows * dff, peak=F32_FLOP_S,
-            shape=f"gate, up ({rows},{dff}) bf16"),
-        "flash_attention": dict(
-            kernel=lambda: flash_attention(q, k, v, causal=True),
-            plain=lambda: ref.flash_attention(q, k, v, causal=True), library=sdpa,
-            bytes=(2 * B * H * TIME_S * hd + 2 * B * Hkv * TIME_S * hd) * es,
-            ops=4 * B * H * hd * pairs, peak=BF16_TENSOR_FLOP_S,
-            shape=f"q ({B},{H},{TIME_S},{hd}) k,v ({B},{Hkv},{TIME_S},{hd}) bf16 causal"),
-        "wkv6": wkv6_timed(TIME_S),
-        "wkv6 decode": wkv6_timed(1),
-    }
-    results = {}
-    for name, t in timed.items():
-        ms = time_ms(t["kernel"])
-        plain_ms = time_ms(t["plain"])
-        lib_ms = time_ms(t["library"]) if t["library"] is not None else None
-        byte_ms = t["bytes"] / HBM_BYTES_S * 1e3
-        op_ms = t["ops"] / t["peak"] * 1e3
-        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=max(byte_ms, op_ms),
-                             bound_by="bytes" if byte_ms >= op_ms else "operations")
-        print(f"[time/{name}] {t['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
-              f"{t['bytes']} B, {t['ops']} ops)")
+    results = time_phase(dev, cfg, rcfg, zcfg)
+    torch.cuda.empty_cache()  # phases 2 and 3 hold no tensor past their return
+    print(f"[smoke] {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before "
+          f"the forwards and serves")
 
     # ---- 4. 2-layer full-width forwards: card (kernels) vs CPU (plain) ------
+    none = {n: 0 for n in KERNELS}
     forward_phase("granite", cfg, dev,
-                  {"rmsnorm": 5, "swiglu": 2, "flash_attention": 2, "wkv6": 0})
-    forward_phase("rwkv6", rcfg, dev,
-                  {"rmsnorm": 5, "swiglu": 0, "flash_attention": 0, "wkv6": 2})
+                  dict(none, rmsnorm=5, swiglu=2, flash_attention=2))
+    forward_phase("rwkv6", rcfg, dev, dict(none, rmsnorm=5, wkv6=2))
+    # hybrid_attn_every 2: layer 1 runs the shared block
+    forward_phase("zamba2", dataclasses.replace(zcfg, hybrid_attn_every=2), dev,
+                  dict(none, rmsnorm=5, swiglu=1, flash_attention=1, mamba2_ssd=2))
 
-    # ---- 5. serve full granite-3-2b, then full rwkv6-7b ---------------------
-    granite = serve_phase("granite", cfg, dev, lambda L, prefill: {
-        "rmsnorm": 2 * L + 1, "swiglu": L, "flash_attention": L if prefill else 0,
-        "wkv6": 0})
-    rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: {
-        "rmsnorm": 2 * L + 1, "swiglu": 0, "flash_attention": 0, "wkv6": L})
+    # ---- 5. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
+    granite = serve_phase("granite", cfg, dev, lambda L, prefill: dict(
+        none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
+    rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: dict(
+        none, rmsnorm=2 * L + 1, wkv6=L))
+    every = zcfg.hybrid_attn_every
+    zamba2 = serve_phase("zamba2", zcfg, dev, lambda L, prefill: dict(
+        none, rmsnorm=L + 2 * (L // every) + 1, swiglu=L // every,
+        flash_attention=L // every if prefill else 0, mamba2_ssd=L))
 
     # ---- result --------------------------------------------------------------
     kernels = []
@@ -453,7 +588,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
-            "replaces": REPLACES[name], "launches": granite[name] + rwkv6[name],
+            "replaces": REPLACES[name],
+            "launches": granite[name] + rwkv6[name] + zamba2[name],
             "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -14,9 +14,10 @@
 // enforces it; the reference oracle's (T - S) offset is never needed on
 // the serving path).
 //
-// Bound on the H100: at the serving shapes (hd = 64, S = T <= 1024) the
-// tensor-core bound 2*B*H*S^2*hd / 989 TFLOP/s and the byte bound
-// (q, k, v, o once each over 3.35 TB/s) are both a few microseconds.  This
+// Bound on the H100: at the serving shapes (hd 64 for granite, 80 for
+// zamba2's shared block, S = T <= 1024) the tensor-core bound
+// 2*B*H*S^2*hd / 989 TFLOP/s and the byte bound (q, k, v, o once each over
+// 3.35 TB/s) are both a few microseconds.  This
 // first design does not reach either: each thread owns one query row, keeps
 // q and the accumulator in registers, and runs the dot products and the
 // P.V update as f32 FMAs on the CUDA cores, reading each key and value of
@@ -146,6 +147,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, in
       return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
+    case 80:  // zamba2's shared attention block
+      return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, scale, causal, stream);
     default:
@@ -156,7 +159,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, in
 }  // namespace
 
 // q, o: (B, H, S, hd); k, v: (B, Hkv, T, hd); all contiguous, H % Hkv == 0,
-// hd in {16, 32, 64, 128}, causal only with S == T.  dtype: repro::DType.
+// hd in {16, 32, 64, 80, 128}, causal only with S == T.  dtype: repro::DType.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int H, int Hkv, int S, int T, int hd, float scale,
                                      int causal, int dtype, int device, void* stream) {

@@ -14,6 +14,13 @@ raises).  The reference's routing rules stay as they are:
 ``rwkv6_scan`` has no routing rule: the kernel takes every sequence
 length, where the reference falls back to its oracle when ``S`` is not a
 multiple of the Pallas chunk (``repro/kernels/ops.py:147``).
+
+``mamba2_ssd_scan`` has none either: the kernel takes every sequence
+length, 1 (decode) included.  The reference has no dispatch for it at all:
+its Pallas wrapper refuses ``S`` that is not a multiple of its chunk
+(``repro/kernels/mamba2_scan.py:76``), and the reference's Mamba2 block
+never calls it, running the same recurrence in its own ``lax.scan``.  The
+port's block calls this entry on every device.
 """
 from __future__ import annotations
 
@@ -23,12 +30,13 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention as _flash_attention_kernel
+from .mamba2_ssd import mamba2_ssd_scan  # noqa: F401
 from .rmsnorm import rmsnorm  # noqa: F401
 from .swiglu import swiglu  # noqa: F401
 from .wkv6 import rwkv6_scan  # noqa: F401
 
-__all__ = ["rmsnorm", "swiglu", "flash_attention", "rwkv6_scan", "FLASH_CHUNK_THRESHOLD",
-           "FLASH_CHUNK"]
+__all__ = ["rmsnorm", "swiglu", "flash_attention", "rwkv6_scan", "mamba2_ssd_scan",
+           "FLASH_CHUNK_THRESHOLD", "FLASH_CHUNK"]
 
 #: key length above which the plain path switches to the chunked
 #: online-softmax attention (never materialises the S x T logits)

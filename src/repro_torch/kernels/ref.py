@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "flash_attention", "flash_attention_chunked", "rwkv6_scan"]
+__all__ = ["rmsnorm", "swiglu", "flash_attention", "flash_attention_chunked", "rwkv6_scan",
+           "mamba2_ssd_scan"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -133,3 +134,33 @@ def rwkv6_scan(
         s = w32[:, :, t, :, None] * s + kv
     y = torch.stack(ys, dim=2) if ys else r32.new_zeros((B, H, 0, hd))
     return y.to(r.dtype), s
+
+
+def mamba2_ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    Bmat: torch.Tensor,  # (B, S, N), shared across heads
+    Cmat: torch.Tensor,  # (B, S, N), shared across heads
+    decay: torch.Tensor,  # (B, S, H) = exp(dt * A)
+    dt: torch.Tensor,  # (B, S, H)
+    state: Optional[torch.Tensor] = None,  # (B, H, P, N); None: zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD recurrence (the inner loop of ``models.mamba2``)::
+
+        h_t = decay_t * h_{t-1} + dt_t * (x_t B_t^T)
+        y_t = h_t C_t
+
+    Returns (y (B,S,H,P) f32, final state (B,H,P,N) f32); math in f32, one
+    step at a time as the oracle's ``lax.scan``."""
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    x32, B32, C32 = x.float(), Bmat.float(), Cmat.float()
+    dc32, dt32 = decay.float(), dt.float()
+    ys = []
+    for t in range(S):
+        upd = dt32[:, t, :, None, None] * (x32[:, t, :, :, None] * B32[:, t, None, None, :])
+        h = dc32[:, t, :, None, None] * h + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C32[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x32.new_zeros((B, 0, H, P))
+    return y, h

@@ -4,13 +4,14 @@ The single-server path of ``repro/launch/serve.py``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu --requests 5
 
-It serves the dense (granite-3-2b) and ssm (rwkv6-7b) families.
-Weights are random (``init_params`` with seed 0, as the reference's
-``jax.random.key(0)``); prompts are drawn from ``--seed`` with the
-reference's lengths (4 to 19 tokens).  It runs on ``cuda`` unless
+It serves the dense (granite-3-2b), ssm (rwkv6-7b) and hybrid (zamba2-2.7b)
+families.  Weights are random (``init_params`` with seed 0, as the
+reference's ``jax.random.key(0)``); prompts are drawn from ``--seed`` with
+the reference's lengths (4 to 19 tokens).  It runs on ``cuda`` unless
 ``--device cpu`` is given, and prints the drain report and how many times
 each hand-written kernel was launched.  The multi-replica cluster mode
 (``--replicas``) is not ported yet (ROADMAP A11); on one device the

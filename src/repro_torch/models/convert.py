@@ -5,8 +5,10 @@ leaf already turned into a numpy array (so this module needs no jax), with
 the reference's stacked leading layer axis, and returns the port's nested
 dicts with ``layers`` as a per-layer list.  Names and layouts are the same
 in both packages, so the conversion only splits the layer axis and moves
-the arrays to torch.  Each leaf keeps the dtype the reference gave it:
-rwkv6's ``w0`` and ``u`` stay f32 in a bf16 model, as in the reference.
+the arrays to torch; subtrees outside ``layers`` (zamba2's
+``shared_block``) are moved as they are.  Each leaf keeps the dtype the
+reference gave it: rwkv6's ``w0`` and ``u`` and Mamba2's ``a_log``,
+``d_skip`` and ``dt_bias`` stay f32 in a bf16 model, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,26 +1,34 @@
-"""Model assembly for the dense and ssm families: init / forward / decode.
+"""Model assembly for the dense, ssm and hybrid families: init / forward / decode.
 
-The counterpart of ``repro/models/model.py`` for two families:
+The counterpart of ``repro/models/model.py`` for three families:
 
-  dense        : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
-  ssm (rwkv6)  : [rmsnorm -> time-mix -> rmsnorm -> channel-mix] x L
+  dense          : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
+  ssm (rwkv6)    : [rmsnorm -> time-mix -> rmsnorm -> channel-mix] x L
+  hybrid (zamba2): [rmsnorm -> Mamba2] x L, and after every
+                   ``hybrid_attn_every``-th layer one shared
+                   [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] block
 
 then the final norm and the (tied or separate) vocabulary head.  The
 reference stacks the layers and runs them under ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts and ``forward`` is a
-Python loop over it.  Other families (moe, hybrid, vlm, audio) are later
-slices of the port.
+Python loop over it.  The hybrid's shared block has one set of weights
+(``params["shared_block"]``) and, in the decode state, one K/V slot per
+invocation: layer ``i`` with ``i % every == every - 1`` uses slot
+``i // every``.  Other families (moe, vlm, audio) are later slices of the
+port.
 
 Parameters are nested dicts of tensors with the reference's names, dtypes
 and the JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an
 explicit ``torch.Generator`` with the reference's distributions and scales.
 The decode state keeps the reference's stacked ``(L, B, ...)`` leaves:
-``{"k", "v"}`` caches of ``(L, B, Hkv, T, hd)`` for dense, and
+``{"k", "v"}`` caches of ``(L, B, Hkv, T, hd)`` for dense;
 ``{"rwkv": {"tmix_x": (L, B, d), "cmix_x": (L, B, d), "wkv": (L, B, H, hd,
-hd) f32}}`` for ssm.  Where the reference returns a new state, ``forward``
-writes the one it is given in place and returns it: each layer's K/V at
-``cache_pos``, or each layer's ``tmix_x``, ``cmix_x`` and ``wkv`` for every
-lane, after that layer has read them.
+hd) f32}}`` for ssm; and ``{"mamba": {"conv": (L, B, K-1, d_in + 2N),
+"ssm": (L, B, H, P, N) f32}, "shared_k", "shared_v": (L // every, B, Hkv,
+T, hd)}`` for hybrid.  Where the reference returns a new state, ``forward``
+writes the one it is given in place and returns it: each attention's K/V
+at ``cache_pos``, and each layer's recurrent state for every lane, after
+that layer has read it.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import attention, attn_init
 from .layers import dense, rmsnorm, rmsnorm_init
+from .mamba2 import mamba2_block, mamba2_init, mamba2_state_init
 from .mlp import mlp, mlp_init
 from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
 
@@ -46,15 +55,27 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense and ssm families; {cfg.family!r} "
-            f"is not ported yet (ROADMAP queue A)")
+            f"{cfg.name}: the port serves the dense, ssm and hybrid families; "
+            f"{cfg.family!r} is not ported yet (ROADMAP queue A)")
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
+                     device: torch.device) -> Dict:
+    """A dense layer, or the hybrid's shared block: ln1, attn, ln2, ffn."""
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, **kw),
+        "attn": attn_init(gen, cfg, **kw),
+        "ln2": rmsnorm_init(cfg.d_model, **kw),
+        "ffn": mlp_init(gen, cfg, **kw),
+    }
+
+
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
                 device: torch.device) -> Dict:
     kw = dict(dtype=dtype, device=device)
@@ -66,12 +87,12 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
             "ln2": rmsnorm_init(cfg.d_model, **kw),
             "cmix": p["cmix"],
         }
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, **kw),
-        "attn": attn_init(gen, cfg, **kw),
-        "ln2": rmsnorm_init(cfg.d_model, **kw),
-        "ffn": mlp_init(gen, cfg, **kw),
-    }
+    if cfg.family == "hybrid":  # zamba2 backbone layer
+        return {
+            "ln1": rmsnorm_init(cfg.d_model, **kw),
+            "mamba": mamba2_init(gen, cfg, **kw),
+        }
+    return _attn_block_init(gen, cfg, **kw)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> Dict:
@@ -91,6 +112,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> 
     params["embed"] = embed.to(dtype)
     params["layers"] = [_layer_init(gen, cfg, dtype=dtype, device=dev)
                         for _ in range(cfg.num_layers)]
+    if cfg.hybrid_attn_every:
+        params["shared_block"] = _attn_block_init(gen, cfg, dtype=dtype, device=dev)
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         head = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen, device=dev) * 0.02
@@ -108,10 +131,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     L = cfg.num_layers
+
+    def stacked(one: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev) for k, a in one.items()}
+
     if cfg.family == "ssm":
-        one = rwkv6_state_init(cfg, batch, dtype=dtype, device=dev)
-        return {"rwkv": {k: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
-                         for k, a in one.items()}}
+        return {"rwkv": stacked(rwkv6_state_init(cfg, batch, dtype=dtype, device=dev))}
+    if cfg.family == "hybrid":
+        kv_shape = (L // cfg.hybrid_attn_every, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+        return {"mamba": stacked(mamba2_state_init(cfg, batch, dtype=dtype, device=dev)),
+                "shared_k": torch.zeros(kv_shape, dtype=dtype, device=dev),
+                "shared_v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
     shape = (L, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -143,6 +173,16 @@ def _rwkv_layer_body(cfg: ModelConfig, layer: Dict, x: torch.Tensor,
     return x + h, {"tmix_x": last_t, "cmix_x": last_c, "wkv": wkv}
 
 
+def _attn_block(cfg: ModelConfig, block: Dict, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]], cache_pos: int) -> torch.Tensor:
+    """rmsnorm -> attention -> rmsnorm -> SwiGLU FFN, each with its residual;
+    ``kv``, when given, is written in place at ``cache_pos``."""
+    h, _ = attention(block["attn"], cfg, rmsnorm(block["ln1"], x, cfg.norm_eps),
+                     positions=positions, kv_cache=kv, cache_pos=cache_pos)
+    x = x + h
+    return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
+
+
 def forward(
     cfg: ModelConfig,
     params: Dict,
@@ -167,14 +207,27 @@ def forward(
             if cache is not None:
                 for k, a in cache["rwkv"].items():
                     a[i] = new_st[k]
+    elif cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
+        for i, layer in enumerate(params["layers"]):
+            st = None if cache is None else {k: a[i] for k, a in cache["mamba"].items()}
+            h, new_st = mamba2_block(layer["mamba"], cfg,
+                                     rmsnorm(layer["ln1"], x, cfg.norm_eps), state=st)
+            x = x + h
+            if cache is not None:
+                for k, a in cache["mamba"].items():
+                    a[i] = new_st[k]
+            if i % every == every - 1:  # the shared block, with its own K/V slot
+                slot = i // every
+                kv = None if cache is None else (cache["shared_k"][slot],
+                                                 cache["shared_v"][slot])
+                x = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
     else:
         positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
         for i, layer in enumerate(params["layers"]):
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            h, _ = attention(layer["attn"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
-                             positions=positions, kv_cache=kv, cache_pos=cache_pos)
-            x = x + h
-            x = x + mlp(layer["ffn"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps))
+            x = _attn_block(cfg, layer, x, positions, kv, cache_pos)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
@@ -189,7 +242,7 @@ def decode_step(
     cache_pos: int,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token of autoregressive decode against the serve state, which is
-    written in place for every lane (K/V at ``cache_pos``, or the recurrent
+    written in place for every lane (K/V at ``cache_pos``, and the recurrent
     state advanced by one token)."""
     logits, state = forward(cfg, params, {"tokens": tokens}, cache=state,
                             cache_pos=cache_pos)

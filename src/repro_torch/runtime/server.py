@@ -8,9 +8,10 @@ weights and prompts:
   refills a free slot from the queue before every engine step;
 * prefill runs the prompt batched across the full slot dimension (the
   other lanes hold zeros) and keeps only that slot's lane of the new
-  state, its argmax being the request's first token.  A recurrent (ssm)
-  prefill starts from the live decode state, as the reference's does: the
-  slot's ``wkv``, ``tmix_x`` and ``cmix_x`` carry into the prompt;
+  state, its argmax being the request's first token.  A recurrent prefill
+  (ssm, and the Mamba2 layers of a hybrid) starts from the live decode
+  state, as the reference's does: the slot's ``wkv``, ``tmix_x`` and
+  ``cmix_x``, or its ``conv`` and ``ssm``, carry into the prompt;
 * an engine step decodes one micro-batch per distinct slot position, each
   at that position, for every lane.
 
@@ -19,7 +20,8 @@ mirrors token for token: a lane that is further along gets another
 micro-batch's K/V written at a position of its history; a recurrent lane in
 a later micro-batch is advanced again with the same pending token; and a
 refilled recurrent slot starts its prompt from the previous request's final
-state and whatever idle decodes wrote there.
+state and whatever idle decodes wrote there.  A hybrid (zamba2) has both a
+K/V cache and a recurrent state, and inherits all three.
 
 Every request carries a :class:`RequestTiming` record on the server's
 ``clock``, reported per request by :meth:`BatchedServer.drain_report`.
@@ -41,6 +43,10 @@ from ..device import resolve_device
 from ..models import decode_step, forward, init_decode_state
 
 __all__ = ["ServerConfig", "BatchedServer", "RequestTiming"]
+
+#: decode-state leaves that are K/V caches, (layers, B, Hkv, T, hd); every
+#: other leaf is recurrent state
+_KV_LEAVES = ("k", "v", "shared_k", "shared_v")
 
 
 @dataclass(frozen=True)
@@ -119,7 +125,8 @@ def _percentile(vals: List[float], p: float) -> float:
 
 
 class BatchedServer:
-    """Continuous-batching server over the port's dense and rwkv6 decoders.
+    """Continuous-batching server over the port's dense, rwkv6 and zamba2
+    decoders.
 
     ``params`` must lie on ``device`` (``cuda`` unless the caller passes
     another device; the constructor raises if CUDA is asked for and absent).
@@ -184,16 +191,9 @@ class BatchedServer:
         # of the new state is kept (_merge_slot)
         toks = np.zeros((self.scfg.batch_size, S), np.int64)
         toks[slot_idx] = prompt
-        if self.cfg.family == "ssm":
-            # from the live state, as the reference prefills from self.state;
-            # on a copy, since forward writes every lane in place
-            scratch = _tree_map(self.state, torch.clone)
-        else:
-            scratch = init_decode_state(self.cfg, self.scfg.batch_size, S,
-                                        device=self.device)
         logits, scratch = forward(self.cfg, self.params,
                                   {"tokens": torch.from_numpy(toks).to(self.device)},
-                                  cache=scratch, cache_pos=0)
+                                  cache=self._prefill_scratch(S), cache_pos=0)
         self._merge_slot(scratch, slot_idx)
         nxt = int(torch.argmax(logits[slot_idx, -1]))
         slot = self.slots[slot_idx]
@@ -205,6 +205,26 @@ class BatchedServer:
         rec.generated = 1
         if self.scfg.max_new_tokens <= 1 or nxt == self.scfg.eos_id:
             self._finish_slot(slot_idx)
+
+    def _prefill_scratch(self, S: int) -> Dict:
+        """The state an S-token prefill runs on.  The reference prefills
+        from the live state (``self.state``).  Recurrent leaves are copied
+        from it (forward writes every lane in place, and only the slot's
+        lane is kept), so a hybrid copies its Mamba2 state, about 0.29 GB
+        at zamba2-2.7b's width and batch 4.  K/V leaves are S-long zeros
+        instead of a copy of the max_seq-long cache (0.38 GB for zamba2):
+        prefill attention reads only the prompt's own K/V, and
+        ``_merge_slot`` installs positions [0, S) of the slot's lane and
+        keeps the rest, which is what the reference's merge of its
+        full-length cache leaves there.  The tokens are the same either
+        way."""
+
+        def fresh(key: str, live: Any) -> Any:
+            if key in _KV_LEAVES:
+                return live.new_zeros(live.shape[:3] + (S,) + live.shape[4:])
+            return _tree_map(live, torch.clone) if isinstance(live, dict) else live.clone()
+
+        return {k: fresh(k, v) for k, v in self.state.items()}
 
     def _finish_slot(self, slot_idx: int) -> None:
         slot = self.slots[slot_idx]

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
 from repro_torch.kernels.wkv6 import rwkv6_scan
@@ -85,6 +86,8 @@ def test_swiglu_kernel_unaligned(card):
         (1, 2, 2, 200, 200, 64, True),  # ragged S
         (1, 4, 2, 24, 24, 16, True),
         (2, 4, 1, 37, 101, 64, False),  # non-causal, ragged S and T
+        (2, 32, 32, 200, 200, 80, True),  # zamba2's shared block: hd 80, MHA
+        (1, 4, 4, 64, 96, 80, False),
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, T, hd, causal, dtype):
@@ -157,3 +160,47 @@ def test_wkv6_kernel_unaligned_and_zero_state(card):
     y_ref, s_ref = ref.rwkv6_scan(r, k, v, w, u)
     torch.testing.assert_close(y.float(), y_ref.float(), **WKV6_TOL[torch.bfloat16])
     torch.testing.assert_close(s, s_ref, **WKV6_STATE_TOL[torch.bfloat16])
+
+
+#: the SSD kernel against its plain version: tests/test_kernels.py's f32
+#: tolerance for y and the state.  From bf16 x, B and C both sides widen
+#: the same values to f32 and run the same f32 recurrence, so it holds too.
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(card, B, S, H, P, N, dtype, offset=0):
+    """x, B and C as the model hands them in: views of one (B, S, H*P + 2N)
+    buffer in ``dtype`` (``offset`` elements into it); dt = softplus of a
+    normal draw as the model makes it (dt_bias 0), decay = exp(-dt); a
+    non-zero f32 initial state."""
+    ch = H * P + 2 * N
+    buf = _randn(card, B, S, ch + offset, dtype=dtype, mul=0.5)[..., offset:]
+    x = buf[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = buf[..., H * P:H * P + N], buf[..., H * P + N:]
+    dt = torch.nn.functional.softplus(_randn(card, B, S, H, dtype=torch.float32, seed=1))
+    s0 = _randn(card, B, H, P, N, dtype=torch.float32, seed=2)
+    return x, Bm, Cm, torch.exp(-dt), dt, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N", [(4, 200, 80, 64, 64), (4, 1, 80, 64, 64),
+                                       (1, 37, 4, 16, 8), (2, 300, 3, 32, 32),
+                                       (2, 64, 2, 8, 16)])
+def test_mamba2_ssd_kernel_matches_plain(card, B, S, H, P, N, dtype):
+    args = _ssd_inputs(card, B, S, H, P, N, dtype)
+    before = KERNELS["mamba2_ssd"].launches
+    y, s = mamba2_ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert KERNELS["mamba2_ssd"].launches == before + 1
+    y_ref, s_ref = ref.mamba2_ssd_scan(*args)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, **SSD_TOL)
+    torch.testing.assert_close(s, s_ref, **SSD_TOL)
+
+
+def test_mamba2_ssd_kernel_unaligned_and_zero_state(card):
+    x, Bm, Cm, dc, dt, _ = _ssd_inputs(card, 2, 45, 8, 64, 64, torch.bfloat16, offset=1)
+    y, s = ops.mamba2_ssd_scan(x, Bm, Cm, dc, dt)
+    y_ref, s_ref = ref.mamba2_ssd_scan(x, Bm, Cm, dc, dt)
+    torch.testing.assert_close(y, y_ref, **SSD_TOL)
+    torch.testing.assert_close(s, s_ref, **SSD_TOL)

@@ -4,7 +4,7 @@ Every input is drawn with numpy from a fixed seed and handed to both
 packages.  Each plain PyTorch version (what a kernel wrapper runs for a CPU
 tensor) is held to ``repro.kernels.ref`` and to the Pallas kernel in
 interpret mode, at the shapes of ``tests/test_kernels.py`` and with its
-tolerances (f32 1e-5, bf16 2e-2, flash f32 2e-4, WKV6 f32 1e-4).  The wrappers' input
+tolerances (f32 1e-5, bf16 2e-2, flash f32 2e-4, WKV6 and SSD f32 1e-4).  The wrappers' input
 checks are exercised here too; the CUDA kernels themselves run only on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention_pallas, rmsnorm_pallas, swiglu_pallas
+from repro.kernels.mamba2_scan import mamba2_ssd_pallas
 from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
 from repro_torch.kernels.wkv6 import rwkv6_scan
@@ -275,3 +277,136 @@ def test_flash_attention_wrapper_checks_raise():
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_reference_at_head_dim_80(dtype):
+    """zamba2's shared attention block: 32 heads of 80, MHA."""
+    rng = np.random.default_rng(9)
+    B, H, S, hd = 1, 4, 96, 80
+    jq, tq = _pair(rng, (B, H, S, hd), dtype, mul=0.5)
+    jk, tk = _pair(rng, (B, H, S, hd), dtype, mul=0.5)
+    jv, tv = _pair(rng, (B, H, S, hd), dtype)
+    got = _np(flash_attention(tq, tk, tv, causal=True))
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got, _np(jref.flash_attention(jq, jk, jv, causal=True)), **tol)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=True, interpret=True,
+                                    block_q=32, block_k=32)
+    np.testing.assert_allclose(got, _np(pallas), **tol)
+
+
+# --------------------------------------------------------------------------
+# the Mamba2 SSD scan
+# --------------------------------------------------------------------------
+def _ssd_inputs(rng, B, S, H, P, N, dtype):
+    """x, B, C in ``dtype``, decay and dt in f32 as the model passes them,
+    and a non-zero f32 initial state, as jax/torch pairs.  The ranges are
+    tests/test_kernels.py's (x, B, C times 0.5, decay in [0.6, 0.95], dt in
+    [0.1, 0.9])."""
+    x = _pair(rng, (B, S, H, P), dtype, mul=0.5)
+    Bm, Cm = _pair(rng, (B, S, N), dtype, mul=0.5), _pair(rng, (B, S, N), dtype, mul=0.5)
+
+    def uniform(lo, hi):
+        a = rng.uniform(lo, hi, (B, S, H)).astype(np.float32)
+        return jnp.asarray(a), torch.from_numpy(a)
+
+    decay, dt = uniform(0.6, 0.95), uniform(0.1, 0.9)
+    s0 = _pair(rng, (B, H, P, N), "float32")
+    return x, Bm, Cm, decay, dt, s0
+
+
+#: tests/test_kernels.py's SSD tolerance, for y and the state; from bf16
+#: x, B and C both sides widen the same values to f32 and run the same f32
+#: recurrence, so it holds there too
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [(1, 2, 64, 16, 8, 32), (2, 2, 32, 8, 8, 32)])
+def test_mamba2_ssd_scan_plain_matches_reference(B, H, S, P, N, chunk, dtype):
+    """tests/test_kernels.py's shapes (S a multiple of chunk), from a
+    non-zero state."""
+    rng = np.random.default_rng(10)
+    pairs = _ssd_inputs(rng, B, S, H, P, N, dtype)
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, s = mamba2_ssd_scan(*targs)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, P) and tuple(s.shape) == (B, H, P, N)
+    want_y, want_s = jref.mamba2_ssd_scan(*jargs)
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOL)
+    np.testing.assert_allclose(_np(s), _np(want_s), **SSD_TOL)
+    pal_y, pal_s = mamba2_ssd_pallas(*jargs, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(pal_y), **SSD_TOL)
+    np.testing.assert_allclose(_np(s), _np(pal_s), **SSD_TOL)
+
+
+def test_mamba2_ssd_scan_state_none_is_zeros():
+    rng = np.random.default_rng(11)
+    x, Bm, Cm, dc, dt, _ = (p[1] for p in _ssd_inputs(rng, 2, 9, 3, 16, 8, "float32"))
+    y0, s0 = mamba2_ssd_scan(x, Bm, Cm, dc, dt)
+    y1, s1 = mamba2_ssd_scan(x, Bm, Cm, dc, dt, torch.zeros(2, 3, 16, 8))
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("split", [1, 17, 32])
+def test_mamba2_ssd_scan_state_chaining(split):
+    """Two runs chained through the returned state equal one run (the
+    decode path: a prompt, then one token at a time)."""
+    rng = np.random.default_rng(12)
+    x, Bm, Cm, dc, dt, s0 = (p[1] for p in _ssd_inputs(rng, 1, 64, 2, 16, 8, "float32"))
+    y_full, s_full = ops.mamba2_ssd_scan(x, Bm, Cm, dc, dt, s0)
+    head = [a[:, :split] for a in (x, Bm, Cm, dc, dt)]
+    tail = [a[:, split:] for a in (x, Bm, Cm, dc, dt)]
+    y1, s1 = ops.mamba2_ssd_scan(*head[:3], *(a.contiguous() for a in head[3:]), s0)
+    y2, s2 = ops.mamba2_ssd_scan(*tail[:3], *(a.contiguous() for a in tail[3:]), s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_full, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, s_full, rtol=1e-5, atol=1e-5)
+
+
+def test_mamba2_ssd_scan_takes_the_models_strided_views():
+    """x, B and C as the model's split of one (B, S, H*P + 2N) buffer gives
+    them (time stride H*P + 2N) give what contiguous copies give."""
+    rng = np.random.default_rng(13)
+    B, S, H, P, N = 2, 7, 3, 16, 8
+    buf = torch.from_numpy(rng.normal(size=(B, S, H * P + 2 * N)).astype(np.float32))
+    x = buf[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = buf[..., H * P:H * P + N], buf[..., H * P + N:]
+    assert not (x.is_contiguous() or Bm.is_contiguous() or Cm.is_contiguous())
+    dt = torch.from_numpy(rng.uniform(0.1, 0.9, (B, S, H)).astype(np.float32))
+    dc = torch.exp(-dt)
+    got = mamba2_ssd_scan(x, Bm, Cm, dc, dt)
+    want = mamba2_ssd_scan(x.contiguous(), Bm.contiguous(), Cm.contiguous(), dc, dt)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_mamba2_ssd_scan_wrapper_checks_raise():
+    B, S, H, P, N = 1, 4, 2, 16, 8
+    x, bc, hd = torch.ones(B, S, H, P), torch.ones(B, S, N), torch.ones(B, S, H)
+    with pytest.raises(TypeError):
+        mamba2_ssd_scan(x.half(), bc.half(), bc.half(), hd, hd)
+    with pytest.raises(TypeError):
+        mamba2_ssd_scan(x, bc.bfloat16(), bc, hd, hd)
+    with pytest.raises(ValueError):
+        mamba2_ssd_scan(x[0], bc, bc, hd, hd)
+    with pytest.raises(ValueError, match="B and C"):
+        mamba2_ssd_scan(x, torch.ones(B, S + 1, N), bc, hd, hd)
+    with pytest.raises(ValueError, match="state_dim"):
+        mamba2_ssd_scan(x, torch.ones(B, S, 12), torch.ones(B, S, 12), hd, hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        mamba2_ssd_scan(torch.ones(B, S, H, 129), bc, bc, hd, hd)
+    with pytest.raises(ValueError, match="decay as"):
+        mamba2_ssd_scan(x, bc, bc, hd.bfloat16(), hd)
+    with pytest.raises(ValueError, match="dt as"):
+        mamba2_ssd_scan(x, bc, bc, hd, torch.ones(B, S, H + 1))
+    with pytest.raises(ValueError, match="state as"):
+        mamba2_ssd_scan(x, bc, bc, hd, hd, torch.ones(B, H, P, N, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), bc, bc, hd, hd)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_ssd_scan(x, bc, bc, torch.ones(B, H, S).transpose(1, 2), hd)
+    with pytest.raises(ValueError):
+        mamba2_ssd_scan(x.to("meta"), bc.to("meta"), bc.to("meta"), hd.to("meta"),
+                        hd.to("meta"))
+    before = KERNELS["mamba2_ssd"].launches
+    mamba2_ssd_scan(x, bc, bc, hd, hd)  # the plain version: no launch counted
+    assert KERNELS["mamba2_ssd"].launches == before
