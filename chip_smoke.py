@@ -20,10 +20,19 @@ fails:
    512, from a non-zero state and, at S 1 and 200, from none (zeros), x, B
    and C as views of one buffer as the model hands them in, once at an odd
    element offset; flash attention at
-   zamba2's head dim 80 too);
+   zamba2's head dim 80 too, causal at the serves' prompt lengths 71 and
+   445 and at 1, 15 and 64, at granite's GQA rep 4, at hd 128;
+   ``[check/rmsnorm]`` at d 2048, 2560, 4096, 128 and 100, at 4 and 1780
+   rows, and on a view one element past a 16-byte boundary).  Then
+   ``[check/grad]``: each wrapper under grad mode, whose output must carry
+   a ``grad_fn`` and whose input gradients (the plain version's vjp) must
+   match the plain version's own autograd;
 3. time: each kernel, its plain version, and one PyTorch call computing the
    same function (``library_ms``; the port never calls it; none exists for
-   WKV6 or the SSD scan), with CUDA events at the largest serving shape,
+   WKV6 or the SSD scan), with CUDA events at the largest serving shape:
+   ``call`` around 20 eager calls (host work included), ``device`` around
+   the replay of a CUDA graph that captured the same 20 calls (the device
+   alone; kernel and library call),
    and the two scans at the decode shape too; flash attention at hd 64
    (granite) and hd 80 (zamba2); the bound is computed from the shapes
    (bytes over 3.35 TB/s, operations over the H100's peak rate).  The
@@ -46,7 +55,8 @@ fails:
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the three serves of phase 5, each counted from 0 just before its
 drain; ``max_abs_err`` the largest of phase 2's checks; the times from
-phase 3), the card's name and power limit as ``nvidia-smi --query-gpu=name,
+phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
+``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -121,6 +131,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call: CUDA events around one replay of a CUDA graph
+    that captured ``reps`` calls of ``fn``, so no host work paces the
+    launches.  ``fn`` has run eagerly before (lazy initialisation)."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -324,7 +355,24 @@ def check_phase(dev, cfg, rcfg, zcfg):
                     ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
             g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
             compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
+        # rmsnorm at the other serving widths (zamba2, rwkv6), qk_norm's hd
+        # 128 and a d off the 16-byte chunk, at decode and 4 x 445 rows; then
+        # an unaligned view (the element-wise path)
+        for width in (zcfg.d_model, rcfg.d_model, 128, 100):
+            for rows in (B, B * 445):
+                x = randn(rows, width, dtype=dtype)
+                sc = randn(width, dtype=dtype, mul=0.1, add=1.0)
+                compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
+                        ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{width})")
+        x = randn(B * 445 * d + 1, dtype=dtype)[1:].view(B * 445, d)
+        sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
+        compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps), ref.rmsnorm(x, sc, cfg.norm_eps),
+                dtype, f"({B * 445},{d}) view at an odd element offset")
         cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
+        # the serves' prompt lengths 71 and 445 and short tiles, at granite's
+        # GQA rep 4; zamba2's hd 80 at 71; hd 128
+        cases += [(B, H, Hkv, s, s, hd, True) for s in (71, 445, 1, 15, 64)]
+        cases += [(B, zH, zH, 71, 71, zhd, True), (1, 4, 2, 200, 200, 128, True)]
         cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
         cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
         cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
@@ -354,6 +402,50 @@ def check_phase(dev, cfg, rcfg, zcfg):
                      f"{' offset 1' if offset else ''}{' zero state' if zero_state else ''}")
             compare("mamba2_ssd", y, y_ref, dtype, label + " y")
             compare("mamba2_ssd", sT, sT_ref, dtype, label + " state")
+
+    def grad_check(name, wrapper, plain, args, dtype, label):
+        """The wrapper under grad mode: its output carries a grad_fn, it
+        launches once, and its input gradients (the plain version's vjp,
+        re-run in the backward) match the plain version's own autograd."""
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        before = KERNELS[name].launches
+        with torch.enable_grad():
+            out = wrapper(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            fns = sorted({o.grad_fn.name() if o.grad_fn is not None else "none" for o in outs})
+            cots = [randn(*o.shape, dtype=o.dtype) for o in outs]
+            got = torch.autograd.grad(outs, leaves, cots)
+            want_out = plain(*leaves)
+            want = torch.autograd.grad(
+                want_out if isinstance(want_out, tuple) else (want_out,), leaves, cots)
+        torch.cuda.synchronize()
+        rtol, atol = TOL[name][str(dtype).split(".")[-1]]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        ok = all(bool(torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol))
+                 for g, w in zip(got, want))
+        ok = ok and "none" not in fns and KERNELS[name].launches == before + 1
+        print(f"[check/grad] {name} {label} {str(dtype).split('.')[-1]}: grad_fn {fns}, "
+              f"{len(got)} input gradients, max_abs_err={err:.3e} (rtol={rtol}, "
+              f"atol={atol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {dtype}: gradient through the kernel wrapper is wrong")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = B * 16
+        grad_check("rmsnorm", lambda a, s: rmsnorm(a, s, eps=cfg.norm_eps),
+                   lambda a, s: ref.rmsnorm(a, s, cfg.norm_eps),
+                   [randn(rows, d, dtype=dtype), randn(d, dtype=dtype, mul=0.1, add=1.0)],
+                   dtype, f"({rows},{d})")
+        grad_check("swiglu", swiglu, ref.swiglu,
+                   [randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)], dtype,
+                   f"({rows},{dff})")
+        grad_check("flash_attention", flash_attention, ref.flash_attention,
+                   [randn(B, H, 71, hd, dtype=dtype, mul=0.5),
+                    randn(B, Hkv, 71, hd, dtype=dtype, mul=0.5), randn(B, Hkv, 71, hd, dtype=dtype)],
+                   dtype, f"B={B} H={H} Hkv={Hkv} S=T=71 hd={hd} causal")
+        grad_check("wkv6", rwkv6_scan, ref.rwkv6_scan, list(wkv6_inputs(37, dtype)), dtype,
+                   f"B={B} H={rH} S=37 hd={rhd}")
+        grad_check("mamba2_ssd", mamba2_ssd_scan, ref.mamba2_ssd_scan,
+                   list(ssd_inputs(37, dtype)), dtype, f"B={B} S=37 zamba2 widths")
     return max_err
 
 
@@ -502,17 +594,23 @@ def time_phase(dev, cfg, rcfg, zcfg):
     results = {}
     for name, t in timed.items():
         ms = time_ms(t["kernel"])
+        device_ms = graph_ms(t["kernel"])
         plain_ms = time_ms(t["plain"])
-        lib_ms = time_ms(t["library"]) if t["library"] is not None else None
+        lib = t["library"]
+        lib_ms = time_ms(lib) if lib is not None else None
+        lib_device_ms = graph_ms(lib) if lib is not None else None
         byte_ms = t["bytes"] / HBM_BYTES_S * 1e3
         op_ms = t["ops"] / t["peak"] * 1e3
-        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=max(byte_ms, op_ms),
+        bound_ms = max(byte_ms, op_ms)
+        results[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             library_device_ms=lib_device_ms, bound_ms=bound_ms,
                              bound_by="bytes" if byte_ms >= op_ms else "operations")
-        print(f"[time/{name}] {t['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
-              f"{t['bytes']} B, {t['ops']} ops)")
+        lib_text = ("none" if lib is None else
+                    f"call {lib_ms:.4f} ms device {lib_device_ms:.4f} ms")
+        print(f"[time/{name}] {t['shape']}: kernel call {ms:.4f} ms device {device_ms:.4f} ms "
+              f"(host {ms - device_ms:.4f} ms), plain {plain_ms:.4f} ms, library {lib_text}, "
+              f"bound {bound_ms:.4f} ms ({results[name]['bound_by']}: {t['bytes']} B, "
+              f"{t['ops']} ops), bound/device {bound_ms / device_ms:.3f}")
     return results
 
 
@@ -590,9 +688,9 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
             "launches": granite[name] + rwkv6[name] + zamba2[name],
-            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
         })
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

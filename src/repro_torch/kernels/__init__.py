@@ -12,7 +12,9 @@ mamba2_ssd         csrc/mamba2_ssd.cu              repro/kernels/mamba2_scan.py
 =================  ==============================  =================================
 
 Each wrapper module holds a :class:`~repro_torch.kernels.build.CudaKernel`
-as ``KERNEL``, whose ``launches`` counts the launches it made.
+as ``KERNEL``, whose ``launches`` counts the launches it made, and launches
+through :func:`~repro_torch.kernels.autograd.kernel_call`, which makes the
+launch differentiable through the plain version under grad mode.
 """
 from . import flash_attention as _flash_attention_mod
 from . import mamba2_ssd as _mamba2_ssd_mod

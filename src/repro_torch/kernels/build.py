@@ -147,6 +147,10 @@ def build_all(kernels: List[CudaKernel]) -> None:
         k.load()
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The handle (``cudaStream_t``) of PyTorch's current stream on ``t``'s
+    device.  The raw getter is the one PyTorch's own generated kernels call;
+    ``torch.cuda.current_stream(device).cuda_stream`` gives the same handle
+    but builds a ``Stream`` object on every call, several microseconds of
+    host time per launch (``scripts/torch_host_cost.py``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

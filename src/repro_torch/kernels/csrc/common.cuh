@@ -29,6 +29,15 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// Make `device` current for a launch.  The caller's thread almost always
+// has it current already, and then nothing is switched.
+static inline cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int code) {

@@ -146,7 +146,7 @@ extern "C" int repro_mamba2_ssd(const void* x, const void* bm, const void* cm, c
                                 long long sbb, long long sbt, long long scb, long long sct,
                                 int dtype, int device, void* stream) {
   if (P < 1 || P > kMaxP) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t strides[6] = {sxb, sxt, sbb, sbt, scb, sct};

@@ -69,7 +69,7 @@ cudaError_t launch(const void* g, const void* u, void* o, int64_t n, int aligned
 // 16-byte aligned.  dtype: repro::DType.
 extern "C" int repro_swiglu(const void* gate, const void* up, void* out, long long n,
                             int aligned, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

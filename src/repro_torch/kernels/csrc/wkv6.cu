@@ -125,7 +125,7 @@ cudaError_t dispatch_hd(const void* r, const void* k, const void* v, const void*
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const void* w,
                           const void* u, const void* s0, void* y, void* sT, int BH, int H,
                           int S, int hd, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -2,7 +2,11 @@
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas``.  A
 tensor on the CPU takes the plain version (``ref.flash_attention``); a
-tensor on the card launches the kernel, or the call raises.
+tensor on the card launches the kernel, or the call raises.  Under grad
+mode the launch is differentiable through the plain version's vjp
+(``autograd.kernel_call``).  The dtype chooses the kernel: bf16 runs on the
+tensor cores and needs 16-byte-aligned q, k and v (the wrapper raises on
+others rather than copy them); f32 runs on the CUDA cores.
 
 Causal attention needs ``S == T`` on every device: the Pallas kernel aligns
 query and key positions at 0 while the oracle offsets queries by ``T - S``,
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
 __all__ = ["flash_attention", "KERNEL", "HEAD_DIMS"]
@@ -55,6 +60,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
         raise ValueError("flash_attention takes contiguous q, k and v")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention tensors on {q.device}, {k.device}, {v.device}")
+    if q.is_cuda and q.dtype == torch.bfloat16 and (
+            (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
+        raise ValueError("flash_attention on the card takes bf16 q, k and v at 16-byte "
+                         "aligned addresses (its tiles are copied 16 bytes at a time)")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: Optional[float]) -> torch.Tensor:
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, H, Hkv, S, T, hd, float(scale), int(causal),
+                  DTYPE_CODES[q.dtype], q.device.index, stream_of(q))
+    return out
+
+
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           scale: Optional[float]) -> torch.Tensor:
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def flash_attention(
@@ -72,13 +100,4 @@ def flash_attention(
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    B, H, S, hd = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Hkv, S, T, hd, float(scale), int(causal),
-                  DTYPE_CODES[q.dtype], q.device.index, stream_of(q))
-    return out
+    return kernel_call(_launch, _plain, q, k, v, causal, scale)

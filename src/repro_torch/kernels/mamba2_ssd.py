@@ -2,10 +2,12 @@
 
 Replaces ``repro/kernels/mamba2_scan.py:mamba2_ssd_pallas``.  A tensor on
 the CPU takes the plain version (``ref.mamba2_ssd_scan``); a tensor on the
-card launches the kernel, or the call raises.  The kernel takes every
-sequence length, 1 (decode) included, where the Pallas wrapper refuses
-``S`` that is not a multiple of its chunk: that rule exists only for the
-TPU's block shapes and has no counterpart here.
+card launches the kernel, or the call raises.  Under grad mode the launch
+is differentiable through the plain version's vjp
+(``autograd.kernel_call``).  The kernel takes every sequence length, 1
+(decode) included, where the Pallas wrapper refuses ``S`` that is not a
+multiple of its chunk: that rule exists only for the TPU's block shapes and
+has no counterpart here.
 
 x, B and C may be strided views, as the model's split of one ``(B, S,
 d_in + 2N)`` buffer gives them: the kernel reads them through their batch
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
+from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
 __all__ = ["mamba2_ssd_scan", "KERNEL", "STATE_DIMS", "MAX_HEAD_DIM"]
@@ -86,6 +89,12 @@ def mamba2_ssd_scan(
         return ref.mamba2_ssd_scan(x, Bmat, Cmat, decay, dt, state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd_scan runs on cpu or cuda, not {x.device}")
+    return kernel_call(_launch, ref.mamba2_ssd_scan, x, Bmat, Cmat, decay, dt, state)
+
+
+def _launch(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor, decay: torch.Tensor,
+            dt: torch.Tensor, state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, H, P = x.shape
     N = Bmat.shape[-1]
     s0 = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)

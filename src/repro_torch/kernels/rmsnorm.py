@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/rmsnorm.py:rmsnorm_pallas``.  A tensor on the CPU
 takes the plain version (``ref.rmsnorm``); a tensor on the card launches
-the kernel, or the call raises.
+the kernel, or the call raises.  Under grad mode the launch is
+differentiable through the plain version's vjp (``autograd.kernel_call``).
 """
 from __future__ import annotations
 
@@ -11,14 +12,19 @@ import ctypes
 import torch
 
 from . import ref
+from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
-__all__ = ["rmsnorm", "KERNEL"]
+__all__ = ["rmsnorm", "KERNEL", "MAX_CHUNKS"]
+
+#: 16-byte chunks of a row the kernel holds in registers: 4 per thread, at
+#: most 1024 threads a row (d up to 32768 in bf16, 16384 in f32)
+MAX_CHUNKS = 4 * 1024
 
 KERNEL = CudaKernel(
     "rmsnorm.cu", "repro_rmsnorm",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
 
 
@@ -36,6 +42,23 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"rmsnorm x on {x.device}, scale on {scale.device}")
 
 
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return out
+    if -(-d * x.element_size() // 16) > MAX_CHUNKS:
+        raise ValueError(f"rmsnorm on the card takes rows of at most {16 * MAX_CHUNKS} "
+                         f"bytes, got d={d} in {x.dtype}")
+    # 16-byte loads need every row, the scale and the output on 16-byte bounds
+    vector = (d * x.element_size()) % 16 == 0 and (
+        (x.data_ptr() | scale.data_ptr() | out.data_ptr()) % 16 == 0)
+    KERNEL.launch(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
+                  int(vector), DTYPE_CODES[x.dtype], x.device.index, stream_of(x))
+    return out
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps))`` rounded to x's dtype, times ``scale``,
     over the last dim of ``x``."""
@@ -44,11 +67,4 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch
         return ref.rmsnorm(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    out = torch.empty_like(x)
-    d = x.shape[-1]
-    rows = x.numel() // d if d else 0
-    if rows == 0:
-        return out
-    KERNEL.launch(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-                  DTYPE_CODES[x.dtype], x.device.index, stream_of(x))
-    return out
+    return kernel_call(_launch, ref.rmsnorm, x, scale, eps)

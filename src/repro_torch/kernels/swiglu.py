@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/swiglu.py:swiglu_pallas``.  A tensor on the CPU
 takes the plain version (``ref.swiglu``); a tensor on the card launches the
-kernel, or the call raises.
+kernel, or the call raises.  Under grad mode the launch is differentiable
+through the plain version's vjp (``autograd.kernel_call``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import ctypes
 import torch
 
 from . import ref
+from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
 __all__ = ["swiglu", "KERNEL"]
@@ -35,13 +37,7 @@ def _check(gate: torch.Tensor, up: torch.Tensor) -> None:
         raise ValueError(f"swiglu gate on {gate.device}, up on {up.device}")
 
 
-def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """``silu(gate) * up`` in f32, returned in gate's dtype."""
-    _check(gate, up)
-    if gate.device.type == "cpu":
-        return ref.swiglu(gate, up)
-    if gate.device.type != "cuda":
-        raise ValueError(f"swiglu runs on cpu or cuda, not {gate.device}")
+def _launch(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(gate)
     n = gate.numel()
     if n == 0:
@@ -50,3 +46,13 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     KERNEL.launch(gate.data_ptr(), up.data_ptr(), out.data_ptr(), n, int(aligned),
                   DTYPE_CODES[gate.dtype], gate.device.index, stream_of(gate))
     return out
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in f32, returned in gate's dtype."""
+    _check(gate, up)
+    if gate.device.type == "cpu":
+        return ref.swiglu(gate, up)
+    if gate.device.type != "cuda":
+        raise ValueError(f"swiglu runs on cpu or cuda, not {gate.device}")
+    return kernel_call(_launch, ref.swiglu, gate, up)

@@ -2,10 +2,12 @@
 
 Replaces ``repro/kernels/rwkv6_scan.py:rwkv6_scan_pallas``.  A tensor on the
 CPU takes the plain version (``ref.rwkv6_scan``); a tensor on the card
-launches the kernel, or the call raises.  The kernel takes every sequence
-length, 1 (decode) included: the reference's fallback to its oracle when
-``S`` is not a multiple of the Pallas chunk exists only for the TPU's block
-shapes and has no counterpart here.
+launches the kernel, or the call raises.  Under grad mode the launch is
+differentiable through the plain version's vjp (``autograd.kernel_call``).
+The kernel takes every sequence length, 1 (decode) included: the
+reference's fallback to its oracle when ``S`` is not a multiple of the
+Pallas chunk exists only for the TPU's block shapes and has no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
+from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
 __all__ = ["rwkv6_scan", "KERNEL", "HEAD_DIMS"]
@@ -70,6 +73,11 @@ def rwkv6_scan(
         return ref.rwkv6_scan(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, not {r.device}")
+    return kernel_call(_launch, ref.rwkv6_scan, r, k, v, w, u, state)
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+            u: torch.Tensor, state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     B, H, S, hd = r.shape
     s0 = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
           if state is None else state)

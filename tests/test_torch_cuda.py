@@ -46,7 +46,11 @@ def _randn(card, *shape, dtype, mul=1.0, add=0.0, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 128), (3, 5, 256), (2, 7, 384), (1, 1, 512), (6, 2048)])
+@pytest.mark.parametrize("shape", [(4, 128), (3, 5, 256), (2, 7, 384), (1, 1, 512), (6, 2048),
+                                   # the serving widths, decode (4) and prefill (4 x 445) rows
+                                   (1780, 2048), (4, 2560), (1780, 2560), (4, 4096),
+                                   (1780, 4096), (8, 4, 128),
+                                   (5, 100)])  # d not a multiple of the 16-byte chunk
 def test_rmsnorm_kernel_matches_plain(card, shape, dtype):
     x = _randn(card, *shape, dtype=dtype)
     scale = _randn(card, shape[-1], dtype=dtype, mul=0.1, add=1.0, seed=1)
@@ -55,6 +59,35 @@ def test_rmsnorm_kernel_matches_plain(card, shape, dtype):
     torch.cuda.synchronize()
     assert KERNELS["rmsnorm"].launches == before + 1
     torch.testing.assert_close(got.float(), ref.rmsnorm(x, scale).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 100])
+def test_rmsnorm_kernel_unaligned(card, d, dtype):
+    """x a view one element past a 16-byte boundary: the element-wise path."""
+    rows = 7
+    x = _randn(card, rows * d + 1, dtype=dtype)[1:].view(rows, d)
+    scale = _randn(card, d, dtype=dtype, mul=0.1, add=1.0, seed=1)
+    before = KERNELS["rmsnorm"].launches
+    got = rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert KERNELS["rmsnorm"].launches == before + 1
+    torch.testing.assert_close(got.float(), ref.rmsnorm(x, scale).float(), **TOL[dtype])
+
+
+def test_rmsnorm_kernel_refuses_rows_past_its_registers(card):
+    """A row is held in registers, 4 chunks of 16 bytes a thread at most
+    1024 threads: a longer one raises, and launches nothing."""
+    from repro_torch.kernels.rmsnorm import MAX_CHUNKS
+
+    d = 4 * MAX_CHUNKS + 4  # f32: one chunk past the limit
+    x = torch.ones(1, d, device=card)
+    before = KERNELS["rmsnorm"].launches
+    with pytest.raises(ValueError, match="at most"):
+        rmsnorm(x, torch.ones(d, device=card))
+    assert KERNELS["rmsnorm"].launches == before
+    got = rmsnorm(x[:, :-4].contiguous(), torch.ones(d - 4, device=card))  # at the limit
+    torch.testing.assert_close(got, torch.ones_like(got), **TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -88,6 +121,16 @@ def test_swiglu_kernel_unaligned(card):
         (2, 4, 1, 37, 101, 64, False),  # non-causal, ragged S and T
         (2, 32, 32, 200, 200, 80, True),  # zamba2's shared block: hd 80, MHA
         (1, 4, 4, 64, 96, 80, False),
+        # the smoke serves' prompt lengths, and tiles shorter than one block
+        (1, 2, 2, 71, 71, 64, True),
+        (1, 2, 2, 445, 445, 64, True),
+        (2, 2, 2, 1, 1, 64, True),
+        (1, 2, 2, 15, 15, 64, True),
+        (1, 2, 2, 64, 64, 64, True),
+        (1, 8, 2, 445, 445, 64, True),  # granite's GQA rep 4
+        (1, 4, 4, 71, 71, 80, True),
+        (1, 2, 2, 200, 200, 128, True),
+        (1, 4, 1, 200, 328, 64, False),
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, T, hd, causal, dtype):
@@ -107,6 +150,24 @@ def test_flash_attention_causal_needs_equal_lengths(card):
     kv = torch.zeros(1, 2, 16, 64, device=card)
     with pytest.raises(ValueError, match="S == T"):
         flash_attention(q, kv, kv, causal=True)
+
+
+def test_flash_attention_bf16_needs_aligned_inputs(card):
+    """bf16 tiles are copied 16 bytes at a time: an unaligned view raises,
+    and is never copied silently."""
+    n = 2 * 2 * 64 * 64
+    q = _randn(card, n + 1, dtype=torch.bfloat16)[1:].view(2, 2, 64, 64)
+    kv = _randn(card, 2, 2, 64, 64, dtype=torch.bfloat16, seed=1)
+    before = KERNELS["flash_attention"].launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, kv, kv, causal=True)
+    assert KERNELS["flash_attention"].launches == before
+    # f32 loads element by element and takes the same view
+    q32 = _randn(card, n + 1, dtype=torch.float32)[1:].view(2, 2, 64, 64)
+    kv32 = kv.float()
+    torch.testing.assert_close(flash_attention(q32, kv32, kv32, causal=True),
+                               ref.flash_attention(q32, kv32, kv32, causal=True),
+                               **FLASH_TOL[torch.float32])
 
 
 def test_decode_with_mask_launches_no_kernel(card):
@@ -204,3 +265,55 @@ def test_mamba2_ssd_kernel_unaligned_and_zero_state(card):
     y_ref, s_ref = ref.mamba2_ssd_scan(x, Bm, Cm, dc, dt)
     torch.testing.assert_close(y, y_ref, **SSD_TOL)
     torch.testing.assert_close(s, s_ref, **SSD_TOL)
+
+
+def _grad_case(card, name, dtype):
+    """(wrapper, plain, args) at small shapes; float inputs require grad."""
+    def rg(t):
+        return t.requires_grad_(True)
+
+    if name == "rmsnorm":
+        return rmsnorm, ref.rmsnorm, [rg(_randn(card, 6, 2048, dtype=dtype)),
+                                      rg(_randn(card, 2048, dtype=dtype, mul=0.1, add=1.0,
+                                                seed=1))]
+    if name == "swiglu":
+        return swiglu, ref.swiglu, [rg(_randn(card, 6, 512, dtype=dtype)),
+                                    rg(_randn(card, 6, 512, dtype=dtype, seed=1))]
+    if name == "flash_attention":
+        return flash_attention, ref.flash_attention, [
+            rg(_randn(card, 2, 8, 71, 64, dtype=dtype, mul=0.5)),
+            rg(_randn(card, 2, 2, 71, 64, dtype=dtype, mul=0.5, seed=1)),
+            rg(_randn(card, 2, 2, 71, 64, dtype=dtype, seed=2))]
+    if name == "wkv6":
+        return rwkv6_scan, ref.rwkv6_scan, [rg(t) for t in
+                                            _wkv6_inputs(card, 1, 2, 37, 64, dtype)]
+    x, Bm, Cm, dc, dt, s0 = _ssd_inputs(card, 2, 37, 4, 64, 64, dtype)
+    return mamba2_ssd_scan, ref.mamba2_ssd_scan, [
+        rg(x.detach().clone()), rg(Bm.detach().clone()), rg(Cm.detach().clone()), rg(dc),
+        rg(dt), rg(s0)]
+
+
+#: gradients are the plain version's vjp on both sides: the forward
+#: tolerances hold them
+GRAD_TOL = {"rmsnorm": TOL, "swiglu": TOL, "flash_attention": FLASH_TOL, "wkv6": WKV6_TOL,
+            "mamba2_ssd": {torch.float32: SSD_TOL, torch.bfloat16: SSD_TOL}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["rmsnorm", "swiglu", "flash_attention", "wkv6",
+                                  "mamba2_ssd"])
+def test_kernel_gradients_match_plain(card, name, dtype):
+    wrapper, plain, args = _grad_case(card, name, dtype)
+    before = KERNELS[name].launches
+    got = wrapper(*args)
+    outs = got if isinstance(got, tuple) else (got,)
+    assert KERNELS[name].launches == before + 1
+    assert all(o.grad_fn is not None for o in outs)
+    cots = [_randn(card, *o.shape, dtype=o.dtype, seed=9 + i) for i, o in enumerate(outs)]
+    grads = torch.autograd.grad(outs, args, cots)
+    assert KERNELS[name].launches == before + 1  # the backward launches nothing
+    want_out = plain(*args)
+    want = torch.autograd.grad(want_out if isinstance(want_out, tuple) else (want_out,),
+                               args, cots)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[name][dtype])
