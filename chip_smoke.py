@@ -14,12 +14,16 @@ fails:
    and spill lines;
 2. check: each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, in bf16 and f32, within the tolerances in ``TOL``
-   (``[check/wkv6]``: B 4, H 64, hd 64, S in 1, 128, 200 and 512, from a
-   non-zero random state, with the decay drawn by the model's formula;
-   ``[check/mamba2_ssd]``: B 4, H 80, P 64, N 64, S in 1, 37, 128, 200 and
-   512, from a non-zero state and, at S 1 and 200, from none (zeros), x, B
-   and C as views of one buffer as the model hands them in, once at an odd
-   element offset; flash attention at
+   (``[check/wkv6]``: B 4, H 64, hd 64, S in 1, 37, 65, 128, 200 and 512,
+   from a non-zero random state, with the decay drawn by the model's
+   formula; ``[check/mamba2_ssd]``: B 4, H 80, P 64, N 64, S in 1, 37, 63,
+   64, 65, 128, 129, 200 and 512, from a non-zero state and, at S 1 and
+   200, from none (zeros), at S 1, 65 and 200 with decays of exactly 0 and
+   1, x, B and C as views of one buffer as the model hands them in, once at
+   an odd element offset; each line names the kernel the entry chose
+   (``route=decode``, ``chunked`` or ``sequential``), the run fails unless
+   all three were checked, and the chunked route is held to the plain
+   version of the chunk form as well; flash attention at
    zamba2's head dim 80 too, causal at the serves' prompt lengths 71 and
    445 and at 1, 15 and 64, at granite's GQA rep 4, at hd 128;
    ``[check/rmsnorm]`` at d 2048, 2560, 4096, 128 and 100, at 4 and 1780
@@ -35,7 +39,10 @@ fails:
    alone; kernel and library call),
    and the two scans at the decode shape too; flash attention at hd 64
    (granite) and hd 80 (zamba2); the bound is computed from the shapes
-   (bytes over 3.35 TB/s, operations over the H100's peak rate).  The
+   (bytes over 3.35 TB/s, operations over the H100's peak rate; each line
+   prints both and names the one its ratio uses; the SSD's operations are
+   those of the form its kernel computes, the f32 ones of the sequential
+   form printed beside the chunked form's tensor-core ones).  The
    tensors of phases 2 and 3 are freed before phase 4;
 4. forward: a 2-layer, full-width granite-3-2b forward, a 2-layer,
    full-width rwkv6-7b forward and a 2-layer, full-width zamba2-2.7b
@@ -109,8 +116,11 @@ DEVICE = "cuda:0"
 SERVE = dict(batch_size=4, max_seq=1024, max_new_tokens=16, requests=8,
              prompt_min=64, prompt_max=512)
 CHECK_S = (128, 200, 512)  # prompt lengths of the per-kernel checks
-WKV6_CHECK_S = (1,) + CHECK_S  # decode and prompt lengths
-SSD_CHECK_S = (1, 37) + CHECK_S  # decode, a ragged chunk, prompt lengths
+WKV6_CHECK_S = (1, 37, 65) + CHECK_S  # decode, ragged staged chunks, prompt lengths
+#: decode, ragged chunks, either side of two and of four of the SSD chunked
+#: kernel's 32-step chunks, prompt lengths
+SSD_CHECK_S = (1, 37, 63, 64, 65, 129) + CHECK_S
+SSD_EDGE_S = (1, 65, 200)  # with decays of exactly 0 and 1
 TIME_S = 512  # the longest prompt: the timed shapes
 
 
@@ -324,7 +334,7 @@ def check_phase(dev, cfg, rcfg, zcfg):
 
     from repro_torch.kernels import KERNELS, ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
+    from repro_torch.kernels.mamba2_ssd import ROUTES, mamba2_ssd_scan, route
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.swiglu import swiglu
     from repro_torch.kernels.wkv6 import rwkv6_scan
@@ -334,6 +344,7 @@ def check_phase(dev, cfg, rcfg, zcfg):
     B = SERVE["batch_size"]
     randn, wkv6_inputs, ssd_inputs = make_inputs(dev, rcfg, zcfg)
     max_err = {n: 0.0 for n in KERNELS}
+    ssd_routes = set()
 
     def compare(name, got, want, dtype, label, tol=None):
         torch.cuda.synchronize()
@@ -390,18 +401,31 @@ def check_phase(dev, cfg, rcfg, zcfg):
             compare("wkv6", y, y_ref, dtype, label + " y")
             compare("wkv6", sT, sT_ref, dtype, label + " state",
                     tol=WKV6_STATE_TOL[str(dtype).split(".")[-1]])
-        ssd_cases = [(s, 0, False) for s in SSD_CHECK_S] + [(37, 1, False)]
-        ssd_cases += [(s, 0, True) for s in (1, 200)]  # state None: the kernel's zeros
-        for s, offset, zero_state in ssd_cases:
-            args = ssd_inputs(s, dtype, offset)
+        ssd_cases = [(s, 0, False, False) for s in SSD_CHECK_S] + [(37, 1, False, False)]
+        # state None: the kernel's zeros; exact 0 and 1 decays
+        ssd_cases += [(s, 0, True, False) for s in (1, 200)]
+        ssd_cases += [(s, 0, False, True) for s in SSD_EDGE_S]
+        for s, offset, zero_state, edge in ssd_cases:
+            args = ssd_inputs(s, dtype, offset, edge)
             if zero_state:
                 args = args[:5]
-            (y, sT), (y_ref, sT_ref) = mamba2_ssd_scan(*args), ref.mamba2_ssd_scan(*args)
             x = args[0]
-            label = (f"B={B} S={s} H={x.shape[2]} P={x.shape[3]} N={args[1].shape[-1]}"
-                     f"{' offset 1' if offset else ''}{' zero state' if zero_state else ''}")
-            compare("mamba2_ssd", y, y_ref, dtype, label + " y")
-            compare("mamba2_ssd", sT, sT_ref, dtype, label + " state")
+            P, N = x.shape[3], args[1].shape[-1]
+            kernel = route(s, P, N, dtype)
+            ssd_routes.add(kernel)
+            y, sT = mamba2_ssd_scan(*args)
+            plains = [("", ref.mamba2_ssd_scan)]
+            if kernel == "chunked":  # and the plain version of the chunk form
+                plains.append((" vs chunked plain", ref.mamba2_ssd_scan_chunked))
+            label = (f"B={B} S={s} H={x.shape[2]} P={P} N={N} route={kernel}"
+                     f"{' offset 1' if offset else ''}{' zero state' if zero_state else ''}"
+                     f"{' decays with exact 0 and 1' if edge else ''}")
+            for what, plain in plains:
+                y_ref, sT_ref = plain(*args)
+                compare("mamba2_ssd", y, y_ref, dtype, label + " y" + what)
+                compare("mamba2_ssd", sT, sT_ref, dtype, label + " state" + what)
+    check(ssd_routes == set(ROUTES),
+          f"mamba2_ssd checks reached the routes {sorted(ssd_routes)}, not all of {ROUTES}")
 
     def grad_check(name, wrapper, plain, args, dtype, label):
         """The wrapper under grad mode: its output carries a grad_fn, it
@@ -474,12 +498,13 @@ def make_inputs(dev, rcfg, zcfg):
         s0 = randn(B, rH, rhd, rhd, dtype=torch.float32)
         return r, k, v, w, u, s0
 
-    def ssd_inputs(S, dtype, offset=0):
+    def ssd_inputs(S, dtype, offset=0, edge=False):
         """x, B and C as zamba2's Mamba2 block hands them in: views of one
         (B, S, d_in + 2N) buffer (``offset`` elements into a wider one);
         dt = softplus of a normal draw, as the model makes it from its
-        projection and dt_bias 0, and decay = exp(-dt) (a_log 0); a
-        non-zero f32 initial state."""
+        projection and dt_bias 0, and decay = exp(-dt) (a_log 0), with
+        ``edge`` exactly 0 at step S // 3 and exactly 1 over the ten steps
+        from S // 2; a non-zero f32 initial state."""
         P, N = zcfg.ssm.head_dim, zcfg.ssm.state_dim
         d_in = zcfg.ssm.expand * zcfg.d_model
         zH = d_in // P
@@ -488,7 +513,11 @@ def make_inputs(dev, rcfg, zcfg):
         Bm, Cm = buf[..., d_in:d_in + N], buf[..., d_in + N:]
         dt = F.softplus(randn(B, S, zH, dtype=torch.float32))
         s0 = randn(B, zH, P, N, dtype=torch.float32)
-        return x, Bm, Cm, torch.exp(-dt), dt, s0
+        decay = torch.exp(-dt)
+        if edge:
+            decay[:, S // 3] = 0.0
+            decay[:, S // 2:S // 2 + 10] = 1.0
+        return x, Bm, Cm, decay, dt, s0
 
     return randn, wkv6_inputs, ssd_inputs
 
@@ -501,7 +530,7 @@ def time_phase(dev, cfg, rcfg, zcfg):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan, route
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.swiglu import swiglu
     from repro_torch.kernels.wkv6 import rwkv6_scan
@@ -558,20 +587,36 @@ def time_phase(dev, cfg, rcfg, zcfg):
         """The SSD scan at zamba2's widths (B 4, H 80, P 64, N 64), x, B and
         C bf16 views of one (B, S, 5248) buffer, decay, dt and the state
         f32.  Bytes: x, B, C, decay and dt read once, y (f32) written once,
-        the state read and written.  Operations per step and head: dt*x (P),
-        the outer product with B, the decay multiply and the add (3 P N),
-        and y = h C (2 P N), f32 on the CUDA cores."""
+        the state read and written.  Operations, by the form the entry's
+        kernel computes: the sequential form (decode) per step and head
+        dt*x (P), the outer product with B, the decay multiply and the add
+        (3 P N), and y = h C (2 P N), f32 on the CUDA cores; the chunked
+        form (prefill) per chunk of L steps and head the bf16 tensor-core
+        products G = C B^T (2 L^2 N) and, each with its f32 operand in three
+        bf16 terms, M X (3 x 2 L^2 P), C h^T and (X w)^T B (3 x 2 L P N
+        each), dense, ragged chunks counted whole."""
         args = ssd_inputs(S, bf16)
         zB, zS, zH, P = args[0].shape
         N = args[1].shape[-1]
+        kernel = route(zS, P, N, bf16)
+        seq_ops = zB * zS * zH * (5 * P * N + P)
+        L = ref.SSD_CHUNK
+        chunks = zB * zH * -(-zS // L)
+        chunk_ops = chunks * (2 * L * L * N + 3 * 2 * L * L * P + 2 * 3 * 2 * L * P * N)
+        if kernel == "chunked":
+            ops, peak, other = chunk_ops, BF16_TENSOR_FLOP_S, ("f32 operations of the "
+                                                               "sequential form", seq_ops,
+                                                               F32_FLOP_S)
+        else:
+            ops, peak, other = seq_ops, F32_FLOP_S, None
         return dict(
             kernel=lambda: mamba2_ssd_scan(*args), plain=lambda: ref.mamba2_ssd_scan(*args),
             library=None,
             bytes=(zB * zS * zH * P * es + 2 * zB * zS * N * es + 2 * zB * zS * zH * 4
                    + 2 * zB * zH * P * N * 4 + zB * zS * zH * P * 4),
-            ops=zB * zS * zH * (5 * P * N + P), peak=F32_FLOP_S,
+            ops=ops, peak=peak, other=other,
             shape=f"x ({zB},{zS},{zH},{P}) B,C ({zB},{zS},{N}) bf16 views, "
-                  f"decay, dt, state f32")
+                  f"decay, dt, state f32, route={kernel}")
 
     timed = {
         "rmsnorm": dict(
@@ -607,10 +652,16 @@ def time_phase(dev, cfg, rcfg, zcfg):
                              bound_by="bytes" if byte_ms >= op_ms else "operations")
         lib_text = ("none" if lib is None else
                     f"call {lib_ms:.4f} ms device {lib_device_ms:.4f} ms")
+        other = ""
+        if t.get("other"):
+            label, n_ops, rate = t["other"]
+            other = f"; {label}: {n_ops} ops, {n_ops / rate * 1e3:.4f} ms, not used"
         print(f"[time/{name}] {t['shape']}: kernel call {ms:.4f} ms device {device_ms:.4f} ms "
               f"(host {ms - device_ms:.4f} ms), plain {plain_ms:.4f} ms, library {lib_text}, "
-              f"bound {bound_ms:.4f} ms ({results[name]['bound_by']}: {t['bytes']} B, "
-              f"{t['ops']} ops), bound/device {bound_ms / device_ms:.3f}")
+              f"bound {bound_ms:.4f} ms (bytes: {t['bytes']} B, {byte_ms:.4f} ms; operations: "
+              f"{t['ops']} ops at {t['peak'] / 1e12:.0f} TFLOP/s, {op_ms:.4f} ms{other}), "
+              f"bound/device {bound_ms / device_ms:.3f} on the "
+              f"{results[name]['bound_by']} bound")
     return results
 
 

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled on its own, at first use, into a shared
 library with a plain C interface under ``build/kernels/`` at the root of the
 checkout, for ``sm_90a`` (Hopper).  A library's name carries a digest of its
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing is compiled when a module is imported: the CPU tests
-import every module on machines that have no ``nvcc``.
+source, of every header in ``csrc/`` and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.  Nothing is
+compiled when a module is imported: the CPU tests import every module on
+machines that have no ``nvcc``.
 
 A :class:`CudaKernel` owns one library and one C entry point, and counts the
 launches that entry point accepted (``launches``), so a run can show that
@@ -75,8 +76,11 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
+        """The library's path, named by a digest of the source, every header
+        under ``csrc/`` (a source may include any of them) and the flags."""
         h = hashlib.sha256()
-        for f in (CSRC / self.source, CSRC / "common.cuh"):
+        for f in [CSRC / self.source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(f.name.encode())
             h.update(f.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
@@ -119,6 +123,15 @@ class CudaKernel:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._lib, self._fn, self._error_string = lib, fn, err
+
+    def function(self, name: str, argtypes: Sequence, restype=ctypes.c_int):
+        """Another C function of this kernel's library (built and loaded on
+        first use), e.g. a query of which kernel a call would take."""
+        self.load()
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
 
     def launch(self, *args) -> None:
         self.load()

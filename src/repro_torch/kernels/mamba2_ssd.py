@@ -13,6 +13,12 @@ x, B and C may be strided views, as the model's split of one ``(B, S,
 d_in + 2N)`` buffer gives them: the kernel reads them through their batch
 and time strides, so no copy is made.  Each needs its innermost dim
 contiguous, and x each time step's ``(H, P)`` block contiguous.
+
+The one C entry picks one of three kernels by a rule written in the
+source's note (:func:`route` asks the built library which): ``decode`` at
+S 1, ``chunked`` (the SSD chunk form on tensor cores) for bf16 with P and N
+multiples of 16, ``sequential`` (one thread per state row) otherwise.
+Every call is one launch whichever it takes.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
 
-__all__ = ["mamba2_ssd_scan", "KERNEL", "STATE_DIMS", "MAX_HEAD_DIM"]
+__all__ = ["mamba2_ssd_scan", "route", "KERNEL", "STATE_DIMS", "MAX_HEAD_DIM", "ROUTES"]
 
 #: state dims N the kernel is instantiated for
 STATE_DIMS = (8, 16, 32, 64)
@@ -37,6 +43,17 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
+
+
+#: the kernels behind the entry, by the code ``repro_mamba2_ssd_route`` returns
+ROUTES = ("sequential", "decode", "chunked")
+
+
+def route(S: int, P: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel a call with these sizes and input dtype launches, as the
+    built library decides it (so on a machine with ``nvcc`` only)."""
+    fn = KERNEL.function("repro_mamba2_ssd_route", [ctypes.c_int] * 4)
+    return ROUTES[fn(S, P, N, DTYPE_CODES[dtype])]
 
 
 def _check(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor, decay: torch.Tensor,

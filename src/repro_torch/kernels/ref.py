@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rmsnorm", "swiglu", "flash_attention", "flash_attention_chunked", "rwkv6_scan",
-           "mamba2_ssd_scan"]
+           "mamba2_ssd_scan", "mamba2_ssd_scan_chunked"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -163,4 +163,73 @@ def mamba2_ssd_scan(
         h = dc32[:, t, :, None, None] * h + upd
         ys.append(torch.einsum("bhpn,bn->bhp", h, C32[:, t]))
     y = torch.stack(ys, dim=1) if ys else x32.new_zeros((B, 0, H, P))
+    return y, h
+
+
+#: time steps per chunk of the SSD scan's chunked kernel (csrc/mamba2_ssd.cu: kL)
+SSD_CHUNK = 32
+
+
+def _split3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``a`` (f32) as three bf16 terms, each the rounding of what the ones
+    before it leave (returned widened to f32): a0 + a1 + a2 keeps about 24
+    of a's bits, so products with a bf16 operand lose almost nothing."""
+    a0 = a.to(torch.bfloat16).float()
+    r = a - a0
+    a1 = r.to(torch.bfloat16).float()
+    a2 = (r - a1).to(torch.bfloat16).float()
+    return a0, a1, a2
+
+
+def mamba2_ssd_scan_chunked(
+    x: torch.Tensor,  # (B, S, H, P) bf16
+    Bmat: torch.Tensor,  # (B, S, N) bf16
+    Cmat: torch.Tensor,  # (B, S, N) bf16
+    decay: torch.Tensor,  # (B, S, H) f32
+    dt: torch.Tensor,  # (B, S, H) f32
+    state: Optional[torch.Tensor] = None,  # (B, H, P, N) f32; None: zeros
+    *,
+    chunk: int = SSD_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mamba2_ssd_scan` in the chunked (SSD) form, computed as the
+    CUDA kernel's chunked route computes it; used by the tests and
+    ``chip_smoke.py`` only.  Per chunk of ``chunk`` steps (the last may be
+    shorter), with D[t, s] = decay_{s+1} ... decay_t (1 on the diagonal)
+    taken as a running product down each column s, so a decay of exactly 0
+    gives 0 and never 0/0::
+
+        G = C B^T                        bf16 x bf16, exact products, f32 sums
+        M[t, s] = G[t, s] * (D[t, s] dt_s)              for s <= t, else 0
+        y = D[t, -1] * (C h^T) + M X     D[t, -1] = decay_0 ... decay_t
+        h <- D[L-1, -1] h + (X * w)^T B   w_s = D[L-1, s] dt_s
+
+    Each product with an f32 operand (h, M, X * w) takes that operand as
+    three bf16 terms (``_split3``) against the bf16 one, as the kernel's
+    tensor-core products do.  Returns (y (B,S,H,P) f32, final state
+    (B,H,P,N) f32)."""
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    x32, B32, C32 = x.float(), Bmat.float(), Cmat.float()
+    ys = []
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        xc, bc, cc = x32[:, c0:c0 + L], B32[:, c0:c0 + L], C32[:, c0:c0 + L]
+        dc = decay[:, c0:c0 + L].float().transpose(1, 2)  # (B, H, L)
+        dtc = dt[:, c0:c0 + L].float().transpose(1, 2)
+        t = torch.arange(L, device=x.device)
+        below = t[:, None] > t[None, :]  # (t, s): s < t
+        fac = torch.where(below, dc[..., :, None], torch.ones((), device=x.device))
+        D = torch.cumprod(fac, dim=-2).masked_fill(t[:, None] < t[None, :], 0.0)
+        D0 = torch.cumprod(dc, dim=-1)  # (B, H, L): decay_0 ... decay_t
+        W = D * dtc[..., None, :]  # (B, H, t, s)
+        M = torch.einsum("btn,bsn->bts", cc, bc)[:, None] * W
+        inter = sum(torch.einsum("btn,bhpn->bthp", cc, hk) for hk in _split3(h))
+        intra = sum(torch.einsum("bhts,bshp->bthp", mk, xc) for mk in _split3(M))
+        ys.append(inter * D0.transpose(1, 2)[..., None] + intra)
+        xw = xc * W[:, :, -1].transpose(1, 2)[..., None]  # (B, L, H, P)
+        upd = sum(torch.einsum("bshp,bsn->bhpn", xk, bc) for xk in _split3(xw))
+        h = h * D0[:, :, -1, None, None] + upd
+    y = torch.cat(ys, dim=1) if ys else x32.new_zeros((B, 0, H, P))
     return y, h

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_scan, route
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
 from repro_torch.kernels.wkv6 import rwkv6_scan
@@ -194,7 +194,9 @@ def _wkv6_inputs(card, B, H, S, hd, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,S,hd", [(4, 64, 200, 64), (4, 64, 1, 64), (1, 4, 37, 16),
-                                      (2, 2, 300, 32)])
+                                      (2, 2, 300, 32),
+                                      # ragged staged chunks at rwkv6-7b's widths
+                                      (4, 64, 37, 64), (4, 64, 65, 64)])
 def test_wkv6_kernel_matches_plain(card, B, H, S, hd, dtype):
     args = _wkv6_inputs(card, B, H, S, hd, dtype)
     before = KERNELS["wkv6"].launches
@@ -243,20 +245,61 @@ def _ssd_inputs(card, B, S, H, P, N, dtype, offset=0):
     return x, Bm, Cm, torch.exp(-dt), dt, s0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,P,N", [(4, 200, 80, 64, 64), (4, 1, 80, 64, 64),
-                                       (1, 37, 4, 16, 8), (2, 300, 3, 32, 32),
-                                       (2, 64, 2, 8, 16)])
-def test_mamba2_ssd_kernel_matches_plain(card, B, S, H, P, N, dtype):
-    args = _ssd_inputs(card, B, S, H, P, N, dtype)
+def _expected_route(S, P, N, dtype):
+    """The source's rule: decode at S 1; chunked for bf16 with P and N
+    multiples of 16; sequential otherwise."""
+    if S == 1:
+        return "decode"
+    if dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0:
+        return "chunked"
+    return "sequential"
+
+
+def _check_ssd(args, dtype):
+    """One launch against the sequential plain version and, on the chunked
+    route, against the plain version of the chunk form too."""
+    x, Bm = args[0], args[1]
+    S, P, N = x.shape[1], x.shape[3], Bm.shape[-1]
+    assert route(S, P, N, dtype) == _expected_route(S, P, N, dtype)
     before = KERNELS["mamba2_ssd"].launches
     y, s = mamba2_ssd_scan(*args)
     torch.cuda.synchronize()
     assert KERNELS["mamba2_ssd"].launches == before + 1
-    y_ref, s_ref = ref.mamba2_ssd_scan(*args)
     assert y.dtype == torch.float32 and s.dtype == torch.float32
-    torch.testing.assert_close(y, y_ref, **SSD_TOL)
-    torch.testing.assert_close(s, s_ref, **SSD_TOL)
+    refs = [ref.mamba2_ssd_scan]
+    if route(S, P, N, dtype) == "chunked":
+        refs.append(ref.mamba2_ssd_scan_chunked)
+    for plain in refs:
+        y_ref, s_ref = plain(*args)
+        torch.testing.assert_close(y, y_ref, **SSD_TOL)
+        torch.testing.assert_close(s, s_ref, **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N", [(4, 200, 80, 64, 64), (4, 1, 80, 64, 64),
+                                       (1, 37, 4, 16, 8), (2, 300, 3, 32, 32),
+                                       (2, 64, 2, 8, 16),
+                                       # zamba2's widths either side of 32-step chunk ends
+                                       (4, 63, 80, 64, 64), (4, 64, 80, 64, 64),
+                                       (4, 65, 80, 64, 64), (4, 129, 80, 64, 64),
+                                       # the chunked route's other tile counts
+                                       (2, 70, 3, 16, 16), (1, 100, 2, 128, 64),
+                                       (2, 1, 3, 8, 8)])
+def test_mamba2_ssd_kernel_matches_plain(card, B, S, H, P, N, dtype):
+    _check_ssd(_ssd_inputs(card, B, S, H, P, N, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 65, 200])
+def test_mamba2_ssd_kernel_exact_zero_and_unit_decays(card, S, dtype):
+    """A decay of exactly 0 (the state is forgotten) at one step and of
+    exactly 1 over ten: the chunked route's running products give 0 and 1,
+    never 0/0."""
+    x, Bm, Cm, dc, dt, s0 = _ssd_inputs(card, 4, S, 80, 64, 64, dtype)
+    dc = dc.clone()
+    dc[:, S // 3] = 0.0
+    dc[:, S // 2:S // 2 + 10] = 1.0
+    _check_ssd((x, Bm, Cm, dc, dt, s0), dtype)
 
 
 def test_mamba2_ssd_kernel_unaligned_and_zero_state(card):
@@ -265,6 +308,10 @@ def test_mamba2_ssd_kernel_unaligned_and_zero_state(card):
     y_ref, s_ref = ref.mamba2_ssd_scan(x, Bm, Cm, dc, dt)
     torch.testing.assert_close(y, y_ref, **SSD_TOL)
     torch.testing.assert_close(s, s_ref, **SSD_TOL)
+    # the same odd view at decode, and a state one float past 16 bytes
+    x, Bm, Cm, dc, dt, s0 = _ssd_inputs(card, 2, 1, 8, 64, 64, torch.bfloat16, offset=1)
+    s0 = torch.cat([s0.new_zeros(1), s0.flatten()])[1:].view_as(s0)
+    _check_ssd((x, Bm, Cm, dc, dt, s0), torch.bfloat16)
 
 
 def _grad_case(card, name, dtype):

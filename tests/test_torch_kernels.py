@@ -410,3 +410,70 @@ def test_mamba2_ssd_scan_wrapper_checks_raise():
     before = KERNELS["mamba2_ssd"].launches
     mamba2_ssd_scan(x, bc, bc, hd, hd)  # the plain version: no launch counted
     assert KERNELS["mamba2_ssd"].launches == before
+
+
+def _ssd_decays_with_exact_zero_and_one(rng, B, S, H):
+    """decay as the model makes it, exp(-softplus(normal)), with exactly 0
+    at one step and exactly 1 over ten steps where S has room."""
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H)))).astype(np.float32)
+    decay = np.exp(-dt).astype(np.float32)
+    if S > 1:
+        decay[:, S // 3] = 0.0
+        decay[:, S // 2:S // 2 + 10] = 1.0
+    return decay, dt
+
+
+@pytest.mark.parametrize(
+    "S,P,N,with_state,edge_decays",
+    [
+        (1, 16, 16, True, False),  # decode
+        (37, 64, 64, False, True),  # a chunk and a ragged one
+        (64, 16, 64, True, True),  # whole chunks only
+        (65, 64, 16, True, True),  # whole chunks and one step
+        (130, 16, 16, False, False),  # four chunks and a ragged one
+    ],
+)
+def test_mamba2_ssd_scan_chunked_matches_reference(S, P, N, with_state, edge_decays):
+    """The kernel's chunked form (running products of the decays, bf16
+    three-term splits of each f32 operand, 32-step chunks) against the
+    reference's sequential scan and the Pallas kernel, from bf16 x, B and
+    C, at the SSD tolerance; with decays of exactly 0 and 1."""
+    rng = np.random.default_rng(14)
+    B, H = 2, 2
+    pairs = _ssd_inputs(rng, B, S, H, P, N, "bfloat16")
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    if edge_decays:
+        decay, dt = _ssd_decays_with_exact_zero_and_one(rng, B, S, H)
+        jargs[3:5] = [jnp.asarray(decay), jnp.asarray(dt)]
+        targs[3:5] = [torch.from_numpy(decay), torch.from_numpy(dt)]
+    if not with_state:
+        jargs, targs = jargs[:5], targs[:5]
+    y, s = ref.mamba2_ssd_scan_chunked(*targs)
+    assert tuple(y.shape) == (B, S, H, P) and tuple(s.shape) == (B, H, P, N)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    want_y, want_s = jref.mamba2_ssd_scan(*jargs)
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOL)
+    np.testing.assert_allclose(_np(s), _np(want_s), **SSD_TOL)
+    chunk = max(c for c in range(1, 65) if S % c == 0)  # the Pallas wrapper's rule
+    pal_y, pal_s = mamba2_ssd_pallas(*jargs, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(pal_y), **SSD_TOL)
+    np.testing.assert_allclose(_np(s), _np(pal_s), **SSD_TOL)
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "mma.cuh"])
+def test_library_path_changes_with_every_header(header, tmp_path, monkeypatch):
+    """A kernel's library is named by a digest that covers each header in
+    csrc/, so an edited header is rebuilt, never loaded stale."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    kernel = KERNELS["mamba2_ssd"]
+    before = kernel.library_path
+    assert kernel.library_path == before  # the same bytes, the same name
+    (csrc / header).write_bytes((csrc / header).read_bytes() + b"\n// edited\n")
+    assert kernel.library_path != before
+    assert kernel.library_path.parent == before.parent
