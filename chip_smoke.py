@@ -13,7 +13,9 @@ fails:
    together); prints each kernel's ``-Xptxas -v`` register, shared-memory
    and spill lines;
 2. check: each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes, in bf16 and f32, within the tolerances in ``TOL``
+   serving and training paths' shapes, in bf16 and f32, within the
+   tolerances in ``TOL`` (rmsnorm, SwiGLU and causal flash attention at the
+   training step's B 4, S 1024 among them)
    (``[check/wkv6]``: B 4, H 64, hd 64, S in 1, 37, 65, 128, 200 and 512,
    from a non-zero random state, with the decay drawn by the model's
    formula; ``[check/mamba2_ssd]``: B 4, H 80, P 64, N 64, S in 1, 37, 63,
@@ -49,7 +51,25 @@ fails:
    forward with the shared block after layer 1 (all f32), each with the
    same weights on the card (kernels) and on the CPU (plain versions): the
    max logit error, the argmax agreement and the launch counts;
-5. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
+5. train: ``[train/check]``, one ``make_train_step`` of a 2-layer,
+   full-width granite-3-2b in f32 (remat on, B 2, S 128 from
+   ``SyntheticLMPipeline``) on the card and on the CPU from the same
+   weights: the loss (``TRAIN_LOSS_TOL``), every gradient, m and v leaf
+   (``TRAIN_LEAF_RTOL``, scaled to the leaf), the update of every
+   parameter and master leaf (``TRAIN_UPDATE_*``), and the step's launches;
+   ``[train/granite]``, full-width, full-depth granite-3-2b (bf16
+   parameters, f32 master, m and v, remat on) trained 6 steps at B 4, S
+   1024 through ``make_train_step``: each step's loss, wall time and
+   tokens/s, the model FLOPs share of the spec-sheet peak, the peak memory,
+   each step's launches (asserted: 161 rmsnorm, 80 SwiGLU, 80 flash
+   attention), finite losses and bf16 leaves after the last step;
+   ``[plan]``, the port's copy of the planner: Table I at N 1024, w 64, the
+   Fig. 4 optimal depths, and ``replan`` of the full granite step's bf16
+   gradient bytes over 64 and 256 devices, each plan's factors multiplying
+   to its world; ``[train/resume]``, reduced granite-3-2b in bf16 through
+   ``Trainer`` and a ``Checkpointer``: 4 steps, a save, a fresh trainer
+   restored from it, 2 more steps, equal bit for bit to 6 unbroken steps;
+6. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
    d 4096, bf16) and full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
    block every 6th layer, bf16), random weights from a seed, each through
    ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
@@ -60,8 +80,8 @@ fails:
    before its ``init_params``, and the peak above that.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
-over the three serves of phase 5, each counted from 0 just before its
-drain; ``max_abs_err`` the largest of phase 2's checks; the times from
+over the 6 training steps of ``[train/granite]`` and the three serves of
+phase 6, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
 phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
@@ -72,6 +92,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -98,6 +119,33 @@ WKV6_STATE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 1e-4)}
 #: 2-layer f32 forward, card vs CPU: absolute logit error, argmax agreement
 FORWARD_ATOL = 1e-3
 FORWARD_ARGMAX_MIN = 0.99
+TRAIN = dict(batch=4, seq=1024, steps=6, warmup_steps=2)
+TRAIN_CHECK = dict(batch=2, seq=128)
+#: [train/check], card vs CPU.  The loss, (rtol, atol): the reference's
+#: fp32 tolerance.
+TRAIN_LOSS_TOL = (1e-5, 1e-5)
+#: The gradients and the moments, leaf by leaf: allclose at rtol r and
+#: atol r * max|CPU leaf|, with r the reference's flash fp32 tolerance, as
+#: the f32 flash kernel's forward differs from the plain version's by up
+#: to that.  Scaled to each leaf, so a leaf of zeros fails (m is 0.1 and v
+#: 0.05 times the clipped gradient and its square).
+TRAIN_LEAF_RTOL = {"grad": 2e-4, "m": 2e-4, "v": 2e-4}
+#: The parameters and the master, by their update u = p - p0.  A first
+#: AdamW step moves an element by lr * (g / (|g| + eps) + wd * w), g the
+#: clipped gradient: +-lr by its sign, but within a few eps of 0 the ratio
+#: turns fast, so there the two devices' gradient difference moves the
+#: update, up to 2 lr where the sign differs.  So every element's two
+#: updates lie within 2 lr + 1e-6 of each other, and at most
+#: TRAIN_UPDATE_OFF of all elements differ by more than lr / 100 (the f32
+#: rounding of w + u at |w| <= 1 is lr / 2500).  Measured on the card: 432
+#: of 222,832,640 elements (1.9e-6), all with |g| below a few eps, the
+#: largest 0.165 lr; the limit is 5x that.  An update the card did not
+#: apply, or applied scaled, differs by more at every element.  lr is
+#: peak_lr / warmup_steps at step 1.
+_LR1 = 3e-4 / TRAIN["warmup_steps"]
+TRAIN_UPDATE_ATOL = 2 * _LR1 + 1e-6
+TRAIN_UPDATE_CLOSE = _LR1 / 100
+TRAIN_UPDATE_OFF = 1e-5
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -249,6 +297,276 @@ def forward_phase(name, cfg, dev, expect_launches):
           f"{name} card forward did not go through the kernels: {launches}")
 
 
+def train_check_phase(cfg, dev):
+    """[train/check]: one training step of a 2-layer, full-width f32
+    granite-3-2b on the card (kernels) and on the CPU (plain versions)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p_cpu = init_params(cfg2, seed=0, device="cpu")
+    p_gpu = to_device(p_cpu, dev)
+    raw = next(SyntheticLMPipeline(DataConfig(cfg2.vocab_size, TRAIN_CHECK["seq"],
+                                              TRAIN_CHECK["batch"])))
+    b_cpu = {k: torch.from_numpy(v) for k, v in raw.items()}
+    b_gpu = to_device(b_cpu, dev)
+
+    def loss_and_grads(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = loss_fn(cfg2, params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    @torch.no_grad()
+    def compare_loss(got, want):
+        rtol, atol = TRAIN_LOSS_TOL
+        err = abs(float(got) - float(want))
+        ok = math.isfinite(float(got)) and bool(torch.allclose(got.cpu(), want, rtol=rtol,
+                                                               atol=atol))
+        print(f"[train/check] loss: card {float(got):.6f} cpu {float(want):.6f} "
+              f"abs_err={err:.3e} (rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
+        check(ok, "[train/check] loss: the card's training step disagrees with the CPU's")
+
+    @torch.no_grad()
+    def compare_leaves(what, got, want):
+        """Leaf by leaf, at rtol r and atol r * max|want|; prints the leaf
+        whose error is the largest share of its max|want|."""
+        rtol = TRAIN_LEAF_RTOL[what]
+        ok, worst, scales = True, (-1.0, 0.0, 0.0, -1), []
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.detach().cpu().float(), w.float()
+            scale, err = float(w.abs().max()), float((g - w).abs().max())
+            scales.append(scale)
+            ok = ok and bool(torch.isfinite(g).all()) and bool(
+                torch.allclose(g, w, rtol=rtol, atol=rtol * scale))
+            share = err / scale if scale else (0.0 if err == 0 else math.inf)
+            worst = max(worst, (share, err, scale, i))
+        share, err, scale, i = worst
+        print(f"[train/check] {what}: {len(scales)} leaves, each within rtol {rtol} and atol "
+              f"{rtol} x its max |value|; max |value| per leaf {min(scales):.3e} to "
+              f"{max(scales):.3e}; worst leaf {i}: max_abs_err={err:.3e} of max |value| "
+              f"{scale:.3e} = {share:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"[train/check] {what}: the card's training step disagrees with the CPU's")
+
+    @torch.no_grad()
+    def compare_update(what, got, want, before, m):
+        """The card's update p - p0 against the CPU's (TRAIN_UPDATE_*); ``m``,
+        the CPU's first moment, gives the clipped gradient (1 - b1) m."""
+        n = off = 0
+        err = g_off = 0.0
+        finite = True
+        for g, w, p0, m0 in zip(got, want, before, m):
+            g = g.detach().cpu().float()
+            finite = finite and bool(torch.isfinite(g).all())
+            du = ((g - p0) - (w.float() - p0)).abs()
+            err = max(err, float(du.max()))
+            far = du > TRAIN_UPDATE_CLOSE
+            off += int(far.sum())
+            if far.any():
+                g_off = max(g_off, float(m0[far].abs().max()) / (1 - opt_cfg.b1))
+            n += du.numel()
+        ok = finite and err <= TRAIN_UPDATE_ATOL and off <= TRAIN_UPDATE_OFF * n
+        print(f"[train/check] {what}: {len(before)} leaves, update p - p0 card vs cpu: "
+              f"max_abs_err={err:.3e} (atol {TRAIN_UPDATE_ATOL:.3e} = 2 lr + 1e-6), "
+              f"{off} of {n} elements off by more than {TRAIN_UPDATE_CLOSE:.3e} = lr/100 "
+              f"(at most {TRAIN_UPDATE_OFF * n:.0f}), their largest |clipped gradient| "
+              f"{g_off:.3e} (eps {opt_cfg.eps}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"[train/check] {what}: the card's AdamW update disagrees with the CPU's")
+
+    loss_g, grads_g = loss_and_grads(p_gpu, b_gpu)
+    loss_c, grads_c = loss_and_grads(p_cpu, b_cpu)
+    compare_loss(loss_g, loss_c)
+    compare_leaves("grad", grads_g, grads_c)
+
+    opt_cfg = OptimizerConfig(warmup_steps=TRAIN["warmup_steps"], decay_steps=TRAIN["steps"])
+    o_gpu, o_cpu = adamw_init(p_gpu, opt_cfg), adamw_init(p_cpu, opt_cfg)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    p_gpu, o_gpu, m_gpu = make_train_step(cfg2, opt_cfg)(p_gpu, o_gpu, b_gpu)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    # the master starts as the f32 parameters: one p0 for both
+    before = [p.detach().float().clone() for p in tree_leaves(p_cpu)]
+    p_cpu, o_cpu, m_cpu = make_train_step(cfg2, opt_cfg)(p_cpu, o_cpu, b_cpu)
+    moment = tree_leaves(o_cpu["m"])
+    compare_update("params", tree_leaves(p_gpu), tree_leaves(p_cpu), before, moment)
+    compare_update("master", tree_leaves(o_gpu["master"]), tree_leaves(o_cpu["master"]), before,
+                   moment)
+    for key in ("m", "v"):
+        compare_leaves(key, tree_leaves(o_gpu[key]), tree_leaves(o_cpu[key]))
+    L = cfg2.num_layers
+    expect = {n: 0 for n in KERNELS}
+    expect.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    print(f"[train/check] 2-layer full-width f32 (B {TRAIN_CHECK['batch']}, S "
+          f"{TRAIN_CHECK['seq']}), remat {cfg2.remat}: loss card {float(m_gpu['loss']):.6f} "
+          f"cpu {float(m_cpu['loss']):.6f}; step launches {launches}")
+    check(launches == expect, f"[train/check] launches {launches} != {expect}")
+
+
+def train_granite_phase(cfg, dev):
+    """[train/granite]: full-width, full-depth granite-3-2b trained TRAIN
+    steps on the card.  Returns (kernel launches over the steps, the bf16
+    gradient bytes of one step)."""
+    import torch
+
+    from repro_torch.configs import param_count
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    params = init_params(cfg, seed=0, device=dev)
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    grad_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    opt_cfg = OptimizerConfig(warmup_steps=TRAIN["warmup_steps"], decay_steps=steps)
+    opt_state = adamw_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    fixed = torch.cuda.memory_allocated() - before
+    print(f"[train/granite] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} {cfg.dtype} "
+          f"remat={cfg.remat}: {n_params / 1e9:.3f} B parameters; parameters and AdamW state "
+          f"(f32 master, m, v) {fixed / 2**30:.2f} GiB; B {B}, S {S}, {steps} steps")
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab_size, S, B))
+    train_step = make_train_step(cfg, opt_cfg)
+    L = cfg.num_layers
+    expect = {n: 0 for n in KERNELS}
+    expect.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    # model FLOPs of one step: 6 per parameter and token in the matmuls
+    # (the tied head counts once, the norms' scales not), and the causal
+    # attention products' forward (4 hd per query-key pair) three times
+    mm_params = n_params - sum(p.numel() for p in leaves if p.dim() == 1)
+    pairs = S * (S + 1) // 2
+    attn_fwd = 4 * B * cfg.num_heads * cfg.head_dim * pairs * L
+    model_flops = 6 * mm_params * B * S + 3 * attn_fwd
+    # with remat the forward runs twice: 8 per parameter and token, 4x attention
+    remat_flops = 8 * mm_params * B * S + 4 * attn_fwd
+    total = {n: 0 for n in KERNELS}
+    times, losses = [], []
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+        for kern in KERNELS.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        for n in KERNELS:
+            total[n] += launches[n]
+        times.append(dt)
+        losses.append(loss)
+        print(f"[train/granite] step {step} loss {loss:.4f} time {dt:.3f}s "
+              f"{B * S / dt:.1f} tokens/s launches {launches}")
+        check(math.isfinite(loss), f"[train/granite] step {step}: loss {loss}")
+        check(launches == expect, f"[train/granite] step {step}: launches {launches} != {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    best = min(times[1:])
+    print(f"[train/granite] steady step (best of steps 1-{steps - 1}) {best:.3f}s, "
+          f"{B * S / best:.1f} tokens/s; model FLOPs {model_flops / 1e12:.2f} TFLOP a step "
+          f"(with the remat forward {remat_flops / 1e12:.2f} TFLOP, {remat_flops / BF16_TENSOR_FLOP_S:.4f}"
+          f" s at the spec-sheet peak); model FLOPs share of the H100's "
+          f"{BF16_TENSOR_FLOP_S / 1e12:.0f} TFLOP/s bf16 spec-sheet peak "
+          f"{model_flops / best / BF16_TENSOR_FLOP_S:.4f}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB before init_params); "
+          f"param_count {param_count(cfg) / 1e9:.3f} B")
+    dtypes = {str(p.dtype) for p in tree_leaves(params)}
+    states = {str(t.dtype) for k in ("master", "m", "v") for t in tree_leaves(opt_state[k])}
+    print(f"[train/granite] after step {steps - 1}: parameter dtypes {sorted(dtypes)}, "
+          f"master/m/v dtypes {sorted(states)}; losses {[round(x, 4) for x in losses]}")
+    check(dtypes == {"torch.bfloat16"}, f"[train/granite] a parameter left bf16: {dtypes}")
+    check(states == {"torch.float32"}, f"[train/granite] AdamW state dtypes {states}")
+    del params, opt_state, leaves, metrics, batch
+    torch.cuda.empty_cache()
+    return total, grad_bytes
+
+
+def plan_phase(grad_bytes):
+    """[plan]: the port's copy of the paper's planner, on a machine without jax."""
+    from repro_torch.configs import optree_paper as paper
+    from repro_torch.core import optimal_depth_argmin, table1
+    from repro_torch.runtime import replan
+
+    t0 = time.perf_counter()
+    t1 = table1(paper.TABLE1_N, paper.TABLE1_W)
+    print(f"[plan] Table I, N {paper.TABLE1_N}, w {paper.TABLE1_W}: "
+          + ", ".join(f"{k} {v}" for k, v in t1.items()))
+    depths = {n: optimal_depth_argmin(n, paper.SYSTEM.wavelengths) for n in paper.FIG4_NODES}
+    print(f"[plan] Fig. 4 optimal depth at w {paper.SYSTEM.wavelengths}: "
+          + ", ".join(f"N {n}: k {k}" for n, k in depths.items()))
+    for world in (64, 256):
+        plan = replan(world, grad_bytes)
+        print(f"[plan] replan({world}, {grad_bytes} B: the granite-3-2b step's bf16 gradient) "
+              f"factors {plan.factors}, modeled time {plan.total_time_s:.6f} s under the "
+              f"planner's ICI_LINK model (the reference's link constants, not this card's), "
+              f"chunks {plan.num_chunks}")
+        check(math.prod(plan.factors) == world, f"[plan] factors {plan.factors} != {world}")
+    print(f"[plan] done in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def train_resume_phase(cfg, dev):
+    """[train/resume]: reduced granite-3-2b in bf16 through ``Trainer``: 4
+    steps and a save, a fresh trainer restored, 2 more steps, against 6
+    unbroken steps, bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import reduced
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    rcfg = dataclasses.replace(reduced(cfg), dtype="bfloat16")
+    ocfg = OptimizerConfig(warmup_steps=2, decay_steps=6)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        def trainer(steps, sub):
+            params = init_params(rcfg, seed=0, device=dev)
+            return Trainer(rcfg, ocfg, TrainerConfig(total_steps=steps, ckpt_interval=4,
+                                                     ckpt_dir=str(Path(tmp) / sub)),
+                           params=params, opt_state=adamw_init(params, ocfg),
+                           pipeline=SyntheticLMPipeline(DataConfig(rcfg.vocab_size, 64, 4)))
+
+        whole = trainer(6, "whole")
+        want = whole.run()["losses"]
+        first = trainer(4, "cut")
+        got = first.run()["losses"]
+        second = trainer(6, "cut")
+        restored = second.try_restore()
+        step = second.step
+        got += second.run()["losses"]
+        same_params = all(torch.equal(a, b) for a, b in
+                          zip(tree_leaves(second.params), tree_leaves(whole.params)))
+        same_opt = all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(second.opt_state), tree_leaves(whole.opt_state)))
+        dtypes = sorted({str(p.dtype) for p in tree_leaves(second.params)})
+        devices = sorted({str(p.device) for p in tree_leaves(second.params)})
+    print(f"[train/resume] reduced granite-3-2b bf16 on {devices}: restored step {step}; "
+          f"losses {got} vs unbroken {want}; parameters equal {same_params}, optimizer "
+          f"state equal {same_opt}; parameter dtypes {dtypes}")
+    check(restored and step == 4, "[train/resume] the restore did not find step 4")
+    check(got == want and same_params and same_opt,
+          "[train/resume] the resumed run differs from the unbroken one")
+    check(all(math.isfinite(x) for x in got), "[train/resume] non-finite loss")
+
+
 def serve_phase(name, cfg, dev, per_forward):
     """Serve ``SERVE["requests"]`` requests on full ``cfg`` (bf16, random
     weights from seed 0); ``per_forward(L, is_prefill)`` gives each kernel's
@@ -359,7 +677,8 @@ def check_phase(dev, cfg, rcfg, zcfg):
 
     zH, zhd = zcfg.num_heads, zcfg.head_dim
     for dtype in (torch.bfloat16, torch.float32):
-        for rows in [B] + [B * s for s in CHECK_S]:  # decode rows, prefill rows
+        # decode rows, prefill rows, the training step's rows
+        for rows in [B] + [B * s for s in CHECK_S] + [TRAIN["batch"] * TRAIN["seq"]]:
             x = randn(rows, d, dtype=dtype)
             sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
             compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
@@ -387,6 +706,7 @@ def check_phase(dev, cfg, rcfg, zcfg):
         cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
         cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
         cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
+        cases += [(TRAIN["batch"], H, Hkv, TRAIN["seq"], TRAIN["seq"], hd, True)]  # training
         for b, h, hk, s, t, e, causal in cases:
             q = randn(b, h, s, e, dtype=dtype, mul=0.5)
             k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
@@ -720,7 +1040,14 @@ def main() -> int:
     forward_phase("zamba2", dataclasses.replace(zcfg, hybrid_attn_every=2), dev,
                   dict(none, rmsnorm=5, swiglu=1, flash_attention=1, mamba2_ssd=2))
 
-    # ---- 5. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
+    # ---- 5. train: card vs CPU, full granite, the planner, resume -----------
+    train_check_phase(cfg, dev)
+    trained, grad_bytes = train_granite_phase(cfg, dev)
+    plan_phase(grad_bytes)
+    train_resume_phase(cfg, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 6. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
     granite = serve_phase("granite", cfg, dev, lambda L, prefill: dict(
         none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
     rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: dict(
@@ -738,7 +1065,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
-            "launches": granite[name] + rwkv6[name] + zamba2[name],
+            "launches": trained[name] + granite[name] + rwkv6[name] + zamba2[name],
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],

@@ -1,4 +1,5 @@
-"""Model assembly for the dense, ssm and hybrid families: init / forward / decode.
+"""Model assembly for the dense, ssm and hybrid families: init / forward /
+loss / decode.
 
 The counterpart of ``repro/models/model.py`` for three families:
 
@@ -29,12 +30,19 @@ T, hd)}`` for hybrid.  Where the reference returns a new state, ``forward``
 writes the one it is given in place and returns it: each attention's K/V
 at ``cache_pos``, and each layer's recurrent state for every lane, after
 that layer has read it.
+
+Training: ``loss_fn`` runs ``forward(..., head_mode="none")`` and the
+sequence-chunked cross entropy ``_chunked_xent``.  Where ``cfg.remat`` is
+true and grad mode is on, each layer body runs under
+``torch.utils.checkpoint`` (its activations are recomputed in the
+backward), as the reference's ``_maybe_checkpoint`` wraps its scan body.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -44,8 +52,8 @@ from .mamba2 import mamba2_block, mamba2_init, mamba2_state_init
 from .mlp import mlp, mlp_init
 from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
 
-__all__ = ["init_params", "init_decode_state", "forward", "apply_head", "decode_step",
-           "torch_dtype"]
+__all__ = ["init_params", "init_decode_state", "forward", "apply_head", "loss_fn",
+           "decode_step", "torch_dtype"]
 
 Device = Union[str, torch.device, None]
 
@@ -183,6 +191,19 @@ def _attn_block(cfg: ModelConfig, block: Dict, x: torch.Tensor, positions: torch
     return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
 
 
+def _maybe_checkpoint(cfg: ModelConfig, body: Callable) -> Callable:
+    """``body`` itself, or ``body`` under ``torch.utils.checkpoint`` where
+    ``cfg.remat`` is true and grad mode is on (the reference's
+    ``_maybe_checkpoint``: without a gradient, remat changes nothing)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: the port has only 'full' "
+            f"(ROADMAP queue A, A6)")
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def forward(
     cfg: ModelConfig,
     params: Dict,
@@ -190,48 +211,123 @@ def forward(
     *,
     cache: Optional[Dict] = None,
     cache_pos: int = 0,
+    head_mode: str = "full",
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns ((B, S, vocab_size) f32 logits, cache).  ``batch["tokens"]``
-    is (B, S) on the params' device; ``cache``, when given, is written in
-    place (K/V at ``cache_pos``; the recurrent state of every lane) and
-    returned."""
+    """Returns (out, cache).  ``out`` by ``head_mode``: ``"full"`` the
+    (B, S, vocab_size) f32 logits, ``"last"`` the (B, vocab_size) logits of
+    the last position, ``"none"`` the final-normed (B, S, d) hidden (the
+    loss applies the head itself).  ``batch["tokens"]`` is (B, S) on the
+    params' device; ``cache``, when given, is written in place (K/V at
+    ``cache_pos``; the recurrent state of every lane) and returned."""
     _check_family(cfg)
+    if head_mode not in ("full", "last", "none"):
+        raise ValueError(f"head_mode {head_mode!r}: 'full', 'last' or 'none'")
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     B, S, _ = x.shape
 
     if cfg.family == "ssm":
+        def body(x, layer, st):
+            return _rwkv_layer_body(cfg, layer, x, st)
+
+        body = _maybe_checkpoint(cfg, body)
         for i, layer in enumerate(params["layers"]):
             st = None if cache is None else {k: a[i] for k, a in cache["rwkv"].items()}
-            x, new_st = _rwkv_layer_body(cfg, layer, x, st)
+            x, new_st = body(x, layer, st)
             if cache is not None:
                 for k, a in cache["rwkv"].items():
                     a[i] = new_st[k]
     elif cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
         positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
-        for i, layer in enumerate(params["layers"]):
-            st = None if cache is None else {k: a[i] for k, a in cache["mamba"].items()}
+
+        def body(x, i, layer, st, kv):
             h, new_st = mamba2_block(layer["mamba"], cfg,
                                      rmsnorm(layer["ln1"], x, cfg.norm_eps), state=st)
             x = x + h
+            if i % every == every - 1:  # the shared block, with its own K/V slot
+                x = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
+            return x, new_st
+
+        body = _maybe_checkpoint(cfg, body)
+        for i, layer in enumerate(params["layers"]):
+            st = None if cache is None else {k: a[i] for k, a in cache["mamba"].items()}
+            kv = None
+            if cache is not None and i % every == every - 1:
+                kv = (cache["shared_k"][i // every], cache["shared_v"][i // every])
+            x, new_st = body(x, i, layer, st, kv)
             if cache is not None:
                 for k, a in cache["mamba"].items():
                     a[i] = new_st[k]
-            if i % every == every - 1:  # the shared block, with its own K/V slot
-                slot = i // every
-                kv = None if cache is None else (cache["shared_k"][slot],
-                                                 cache["shared_v"][slot])
-                x = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
     else:
         positions = (cache_pos + torch.arange(S, device=x.device)).expand(B, S)
+
+        def body(x, layer, kv):
+            return _attn_block(cfg, layer, x, positions, kv, cache_pos)
+
+        body = _maybe_checkpoint(cfg, body)
         for i, layer in enumerate(params["layers"]):
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x = _attn_block(cfg, layer, x, positions, kv, cache_pos)
+            x = body(x, layer, kv)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if head_mode == "none":
+        return x, cache
+    if head_mode == "last":
+        x = x[:, -1:]
     logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
+    if head_mode == "last":
+        logits = logits[:, 0]
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# training loss
+# --------------------------------------------------------------------------
+def _chunk_log_likelihood(cfg: ModelConfig, params: Dict, h: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Summed log-likelihood of ``labels`` under the head's logits of one
+    (B, chunk, d) slab; the padded vocab columns are masked to -1e30."""
+    logits = apply_head(cfg, params, h)  # (B, chunk, Vp) f32
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    return logp.gather(-1, labels.long()[..., None]).sum()
+
+
+def _chunked_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked cross entropy: the (B, S, V) logits are never all
+    live.  The chunk is the largest divisor of S that is at most
+    ``cfg.loss_chunk``; each chunk's logits slab is reduced to its summed
+    log-likelihood and dropped, and recomputed in the backward."""
+    B, S, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, S)
+    while S % chunk:
+        chunk -= 1  # largest divisor <= loss_chunk
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_log_likelihood, cfg, params, h, lab,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_log_likelihood(cfg, params, h, lab)
+    return -total / (B * S)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics): the mean next-token cross entropy of
+    ``batch["labels"]`` given ``batch["tokens"]``, both (B, S)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE loss (load-balance and router-z terms) waits "
+            f"for the MoE port (ROADMAP queue A, A7)")
+    hidden, _ = forward(cfg, params, batch, head_mode="none")
+    ce = _chunked_xent(cfg, params, hidden, batch["labels"])
+    return ce, {"ce": ce, "loss": ce}
 
 
 def decode_step(

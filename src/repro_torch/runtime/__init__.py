@@ -1,2 +1,3 @@
-"""Serving runtime of the port (the counterpart of ``repro.runtime``)."""
+"""Serving and training runtimes of the port (the counterpart of ``repro.runtime``)."""
 from .server import BatchedServer, RequestTiming, ServerConfig  # noqa: F401
+from .trainer import Trainer, TrainerConfig, make_train_step, replan  # noqa: F401

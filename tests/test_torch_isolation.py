@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import from_jax_params, init_decode_state, init_params
 from repro_torch.runtime import BatchedServer, ServerConfig
 
@@ -37,7 +37,10 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.configs, repro_torch.kernels, "
-            "repro_torch.models, repro_torch.runtime, repro_torch.launch.serve\n"
+            "repro_torch.models, repro_torch.runtime, repro_torch.launch.serve, "
+            "repro_torch.core, repro_torch.optics, repro_torch.configs.optree_paper, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.runtime.trainer, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -66,6 +69,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(no_card):
         BatchedServer(cfg, params, ServerConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "granite-3-2b", "--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-3-2b", "--reduced", "--steps", "1"])
 
 
 def test_chip_smoke_refuses_without_a_card_or_a_checkout(no_card, tmp_path):

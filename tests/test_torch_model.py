@@ -6,6 +6,11 @@ greedy token, which would prove nothing), and handed to both packages: as
 jax arrays to the reference and through ``from_jax_params`` to the port.
 Token ids come from numpy with a fixed seed.  Logits must agree within
 1e-4 (relative and absolute, f32).
+
+The other dense configs are held the same way, forward and prefill plus
+4 decode steps, on reduced phi4-mini (tied head), qwen3-32b (``qk_norm``)
+and qwen2.5-32b (``qkv_bias``, with the biases set to non-zero values);
+and ``forward``'s ``head_mode`` "last" and "none" against the reference's.
 """
 import dataclasses
 
@@ -40,15 +45,29 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
+def _models(arch):
+    """(jax cfg, jax params, port cfg, port params) with the same weights:
+    dense weights times WEIGHT_MUL; biases (qwen2.5's QKV), zero at init,
+    drawn at the weights' scale, 0.02 times WEIGHT_MUL."""
+    jcfg = jreduced(jget_config(arch))
+    cfg = reduced(get_config(arch))
+    rng = np.random.default_rng(3)
+
+    def scaled(path, a):
+        a = np.asarray(a)
+        if path[-1].key == "scale":
+            return a
+        if path[-1].key == "b":
+            return (rng.normal(size=a.shape) * 0.02 * WEIGHT_MUL).astype(a.dtype)
+        return a * WEIGHT_MUL
+
+    tree = jax.tree_util.tree_map_with_path(scaled, jinit_params(jax.random.key(0), jcfg))
+    return jcfg, jax.tree.map(jnp.asarray, tree), cfg, from_jax_params(tree, cfg, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def models():
-    """(jax cfg, jax params, port cfg, port params) with the same weights."""
-    jcfg = jreduced(jget_config("granite-3-2b"))
-    cfg = reduced(get_config("granite-3-2b"))
-    tree = jax.tree_util.tree_map_with_path(
-        lambda path, a: np.asarray(a) * (1.0 if path[-1].key == "scale" else WEIGHT_MUL),
-        jinit_params(jax.random.key(0), jcfg))
-    return jcfg, jax.tree.map(jnp.asarray, tree), cfg, from_jax_params(tree, cfg, device="cpu")
+    return _models("granite-3-2b")
 
 
 def test_configs_match_reference():
@@ -111,8 +130,11 @@ def test_forward_logits_match_reference(models, backend):
 
 
 def test_prefill_and_decode_match_reference(models):
-    jcfg, jp, cfg, tp = models
-    B, S, T, steps = 2, 9, 24, 6
+    _check_prefill_and_decode(*models, steps=6)
+
+
+def _check_prefill_and_decode(jcfg, jp, cfg, tp, steps):
+    B, S, T = 2, 9, 24
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
     jstate = jinit_decode_state(jcfg, B, T)
@@ -132,3 +154,40 @@ def test_prefill_and_decode_match_reference(models):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         nxt = np.asarray(want).argmax(-1)[:, None].astype(np.int32)
     np.testing.assert_allclose(state["v"].numpy(), np.asarray(jstate["v"]), **TOL)
+
+
+OTHER_DENSE = ["phi4-mini-3.8b", "qwen3-32b", "qwen2.5-32b"]
+
+
+@pytest.mark.parametrize("arch", OTHER_DENSE)
+def test_other_dense_forward_matches_reference(arch):
+    jcfg, jp, cfg, tp = _models(arch)
+    assert (cfg.tie_embeddings, cfg.qk_norm, cfg.qkv_bias) == {
+        "phi4-mini-3.8b": (True, False, False), "qwen3-32b": (False, True, False),
+        "qwen2.5-32b": (False, False, True)}[arch]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want, _, _ = jforward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    got, _ = forward(cfg, tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert len(np.unique(np.asarray(want).argmax(-1))) > 3
+
+
+@pytest.mark.parametrize("arch", OTHER_DENSE)
+def test_other_dense_prefill_and_decode_match_reference(arch):
+    _check_prefill_and_decode(*_models(arch), steps=4)
+
+
+@pytest.mark.parametrize("head_mode", ["last", "none"])
+def test_head_modes_match_reference(models, head_mode):
+    """``"last"``: the (B, vocab) logits of the last position; ``"none"``:
+    the final-normed hidden, which the loss heads itself."""
+    jcfg, jp, cfg, tp = models
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    want, _, _ = jforward(jcfg, jp, {"tokens": jnp.asarray(toks)}, head_mode=head_mode)
+    got, _ = forward(cfg, tp, {"tokens": torch.from_numpy(toks)}, head_mode=head_mode)
+    shape = (2, cfg.vocab_size) if head_mode == "last" else (2, 10, cfg.d_model)
+    assert got.shape == want.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if head_mode == "last":
+        full, _ = forward(cfg, tp, {"tokens": torch.from_numpy(toks)})
+        np.testing.assert_allclose(got.numpy(), full[:, -1].numpy(), **TOL)
