@@ -69,7 +69,22 @@ fails:
    to its world; ``[train/resume]``, reduced granite-3-2b in bf16 through
    ``Trainer`` and a ``Checkpointer``: 4 steps, a save, a fresh trainer
    restored from it, 2 more steps, equal bit for bit to 6 unbroken steps;
-6. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
+6. comms: the collective executors of ``repro_torch.comms``.
+   ``[comms/card]``, an NCCL world of one rank on the card (one H100 holds
+   one NCCL rank; the phase says so in a line of its own): ag, rs, ar and
+   a2a through ``CommContext`` in the oneshot, chunked, perhop and hybrid
+   modes on CUDA tensors of the paper's Fig. 4 message (4 MiB), each output
+   on the card and equal bit for bit to the flat NCCL collective, timed
+   with CUDA events; the latency exchange has no plan for one rank, which
+   the phase prints.  ``[comms/gloo8]``, the test suite's world script
+   (``tests/subproc/torch_comms_world.py --suite sizes``, torch only) on the
+   card machine's host: 8 gloo ranks, meshes [2, 4] and [2, 2, 2], shards of
+   64 KiB, 1 MiB and 4 MiB, every op in every mode (the latency exchange
+   too) bit-identical to the flat one-shot collective, with its time.
+   ``[comms/perf]``, ``python -m repro_torch.launch.perf --collectives 2,4
+   --sizes-kb 64,4096 --device cpu``, its rows printed.  Each subprocess
+   runs in a process group of its own, killed whole on a timeout;
+7. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
    d 4096, bf16) and full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
    block every 6th layer, bf16), random weights from a seed, each through
    ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
@@ -81,7 +96,7 @@ fails:
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the 6 training steps of ``[train/granite]`` and the three serves of
-phase 6, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
+phase 7, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
 phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
@@ -516,6 +531,128 @@ def plan_phase(grad_bytes):
               f"chunks {plan.num_chunks}")
         check(math.prod(plan.factors) == world, f"[plan] factors {plan.factors} != {world}")
     print(f"[plan] done in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def run_group(cmd, timeout_s, prefix):
+    """Run ``cmd`` in a process group of its own, echo its standard output
+    line by line, and on a timeout kill the whole group (the ranks it spawned
+    too).  Returns the output lines; raises unless it exited 0."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{prefix} {' '.join(cmd)} ran past {timeout_s} s; killed")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # whatever it left behind
+        except ProcessLookupError:
+            pass
+    lines = out.splitlines()
+    for line in lines:
+        print(line if line.startswith("[") else f"{prefix} {line}", flush=True)
+    if proc.returncode != 0:
+        print(err[-6000:], file=sys.stderr)
+        raise RuntimeError(f"{prefix} {' '.join(cmd)} exited {proc.returncode}")
+    return lines
+
+
+def comms_card_phase(dev):
+    """[comms/card]: the collective executors in an NCCL world of one rank
+    on the card, on CUDA tensors of the paper's Fig. 4 message.  Every op
+    in every mode through ``CommContext``, each output on the card and
+    equal bit for bit to the flat one-shot collective."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import FactorizedMesh, api, init_world
+    from repro_torch.configs.optree_paper import FIG4_MESSAGE_BYTES
+
+    print("[comms/card] one H100 holds one NCCL rank (NCCL refuses a duplicate GPU), "
+          "so no multi-rank world runs on the card: this phase is a world of one "
+          "rank (size-1 axes, rings of zero hops), and the 8-rank executors run "
+          "under gloo on the host in [comms/gloo8]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_dev = init_world("cuda", world_size=1, rank=0,
+                              store_path=os.path.join(tmp, "store"))
+        try:
+            check(dist.get_backend() == "nccl", f"[comms/card] backend {dist.get_backend()}")
+            mesh = FactorizedMesh([1, 1], ("a", "b"))
+            n = FIG4_MESSAGE_BYTES // 4
+            g = torch.Generator(device=rank_dev).manual_seed(0)
+            x = torch.randint(-64, 64, (n,), generator=g, device=rank_dev).float()
+            names = ("a", "b")
+            flat = {"ag": lambda: mesh.all_gather(x, names).reshape(-1),
+                    "rs": lambda: mesh.psum_scatter(x, names),
+                    "ar": lambda: mesh.psum(x, names),
+                    "a2a": lambda: mesh.all_to_all(x, names)}
+            ops = {"ag": api.all_gather, "rs": api.reduce_scatter,
+                   "ar": api.all_reduce, "a2a": api.all_to_all}
+            ctx = api.CommContext(mesh, names)
+            for coll, op in ops.items():
+                want = flat[coll]()
+                flat_ms = time_ms(flat[coll])
+                for mode, chunks in (("oneshot", None), ("chunked", 4),
+                                     ("perhop", None), ("hybrid", 2)):
+                    fn = (lambda op=op, mode=mode, chunks=chunks:
+                          op(x, axis=0, ctx=ctx, mode=mode, num_chunks=chunks))
+                    out = fn()
+                    check(out.device.type == "cuda", f"[comms/card] {coll} {mode} on {out.device}")
+                    check(out.shape == want.shape and torch.equal(
+                        out.contiguous().view(torch.int32), want.contiguous().view(torch.int32)),
+                        f"[comms/card] {coll} {mode} differs from the flat collective")
+                    print(f"[comms/card] {coll} {FIG4_MESSAGE_BYTES} B {mode:<8} "
+                          f"{time_ms(fn):.4f} ms (flat NCCL {flat_ms:.4f} ms), "
+                          f"on {out.device}, bit-identical", flush=True)
+            for coll in ("ag", "rs", "ar"):
+                lat = api.CommContext(mesh, names, policy=api.PlanPolicy(regime="latency"))
+                try:
+                    ops[coll](x, axis=0, ctx=lat)
+                except ValueError as err:
+                    print(f"[comms/card] {coll} latency exchange: no plan in a world of "
+                          f"one rank ({err}); the exchange executor runs in [comms/gloo8]")
+                else:
+                    raise RuntimeError(f"[comms/card] {coll}: a latency plan for one rank")
+            st = ctx.cache_stats
+            print(f"[comms/card] cache hits {st.hits} misses {st.misses}")
+        finally:
+            dist.destroy_process_group()
+
+
+def comms_gloo8_phase():
+    """[comms/gloo8]: the test suite's world script (torch only) on the
+    card machine's host: 8 gloo ranks, meshes [2, 4] and [2, 2, 2], shards
+    of 64 KiB, 1 MiB and 4 MiB, every op in every mode bit-identical to the
+    flat one-shot collective, with its time."""
+    t0 = time.perf_counter()
+    lines = run_group([sys.executable, "tests/subproc/torch_comms_world.py",
+                       "--suite", "sizes", "--sizes-kb", "64,1024,4096",
+                       "--timeout", "500"], 560, "[comms/gloo8]")
+    rows = [ln for ln in lines if ln.startswith("[comms/gloo8] mesh")]
+    # 2 meshes x 3 sizes x (4 collectives x 4 modes + 3 latency chains)
+    check(len(rows) == 2 * 3 * 19 and all(ln.endswith("bit-identical") for ln in rows),
+          f"[comms/gloo8] {len(rows)} rows, want {2 * 3 * 19}")
+    print(f"[comms/gloo8] host CPU under gloo: {len(rows)} runs bit-identical in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def comms_perf_phase():
+    """[comms/perf]: ``launch.perf --collectives`` on 8 gloo ranks."""
+    lines = run_group([sys.executable, "-m", "repro_torch.launch.perf", "--collectives",
+                       "2,4", "--sizes-kb", "64,4096", "--device", "cpu",
+                       "--timeout", "500"], 560, "[comms/perf]")
+    rows = [ln for ln in lines if ln.startswith("[perf/collectives] ") and "KB mesh=" in ln]
+    check(len(rows) == 6 and all(ln.endswith("bit-identical") for ln in rows),
+          f"[comms/perf] {len(rows)} collective rows, want 6")
 
 
 def train_resume_phase(cfg, dev):
@@ -1047,7 +1184,13 @@ def main() -> int:
     train_resume_phase(cfg, dev)
     torch.cuda.empty_cache()
 
-    # ---- 6. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
+    # ---- 6. the collective executors: one NCCL rank, 8 gloo ranks ----------
+    comms_card_phase(dev)
+    comms_gloo8_phase()
+    comms_perf_phase()
+    torch.cuda.empty_cache()
+
+    # ---- 7. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
     granite = serve_phase("granite", cfg, dev, lambda L, prefill: dict(
         none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
     rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: dict(

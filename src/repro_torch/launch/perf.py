@@ -1,0 +1,364 @@
+"""Staged-collective microbenchmarks of the port (the reference's
+``launch/perf.py --collectives``):
+
+  PYTHONPATH=src python -m repro_torch.launch.perf --collectives 2,4 \\
+      --sizes-kb 64,1024 --device cpu
+
+spawns one process per rank of the factorized mesh (``prod(factors)``
+ranks, rendezvous through a ``FileStore`` in a fresh directory) and, for
+each of ag, rs and ar and each size, prints per execution mode (one-shot
+stage barriers / chunked wavefront / per-hop ppermute rings / the
+perhop-chunked hybrid) the modeled electrical time (LinkSpec alpha and
+bandwidth), the modeled optical time (the paper's Eq. 3 on the RWA-lowered
+schedule of the same plan) and the measured time, all off the SAME
+CollectivePlan object the engine executes, beside the flat one-shot
+``torch.distributed`` collective; then the latency-regime rows (the
+recursive-doubling exchange chain against the best ring mode, what
+``regime="auto"`` planned, its measured time), the crossovers and the cache
+counters.  Every mode's output is checked bit for bit against the flat
+collective before it is timed.
+
+The measured times are the slowest rank's mean over ``--reps`` calls: on
+``--device cpu`` a gloo world on the host CPU, on ``cuda`` (the default) an
+NCCL world with one rank per card, refused when the world is larger than
+the card count.  The modeled times use the reference's link constants
+(``core.planner.ICI_LINK``/``DCN_LINK``: the major axis DCN-class, the rest
+ICI), not this machine's, unless ``--links`` gives fitted ones.
+
+  --links fitted.json  a links table (``core.planner.load_links`` format)
+                       fed into the comms context, which re-plans
+  --order electrical|optical
+                       run the cross-world stage-order search per plan
+                       (``PlanPolicy.order``) and report both worlds' best
+                       order
+  --optical-w W        wavelength count of the optical pricer in the order
+                       search (default: TERARACK's 64)
+  --bench-json PATH    write the sweep as JSON
+
+The reference's ``--calibrate``, ``--tp-block``, ``--moe``, ``--faults``,
+``--cluster`` and ``--reconfig`` sections and its hill-climb mode are
+ROADMAP A12.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import multiprocessing as mp
+import os
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+from typing import List, Optional
+
+MODES = ("oneshot", "chunked", "perhop", "hybrid")
+#: a world whose ranks hang is killed after this long
+WORLD_TIMEOUT_S = 1200.0
+
+
+def _bench_setup(factors, links_path=None, order=None, optical_w=None):
+    """Mesh, link table and comms context of the reference's
+    ``_bench_setup``, on the current world."""
+    from repro_torch.comms import FactorizedMesh
+    from repro_torch.comms.api import CommContext, PlanPolicy
+    from repro_torch.core.cost_model import TERARACK, derive_wavelengths
+    from repro_torch.core.planner import DCN_LINK, ICI_LINK, load_links
+
+    names = [f"s{i}" for i in range(len(factors))]
+    n = math.prod(factors)
+    mesh = FactorizedMesh(factors, names)
+    # one link model for the modeled plans AND the context being measured:
+    # the major axis is DCN-class (the pod analogue), the rest ICI, unless
+    # a --links file overrides with fitted specs
+    link_map = {names[i]: (DCN_LINK if i == 0 and len(factors) > 1 else ICI_LINK)
+                for i in range(len(factors))}
+    fitted = None
+    if links_path:
+        fitted = load_links(links_path, fallbacks=link_map,
+                            expect_axes=names, allow_missing=True)
+    w = optical_w
+    notes = []
+    if w is None and fitted is not None and order:
+        w = derive_wavelengths(fitted)
+        notes.append(f"[perf/collectives] derived optical wavelengths w={w} "
+                     f"from fitted links (override with --optical-w)")
+    optical_sys = dataclasses.replace(
+        TERARACK, n_nodes=n, wavelengths=w if w else TERARACK.wavelengths)
+    policy = PlanPolicy(order=order, optical=optical_sys) if order else PlanPolicy()
+    ctx = CommContext(mesh, tuple(names), links=link_map, policy=policy)
+    if fitted is not None:
+        ctx.update_links(fitted)
+        link_map = ctx.links
+        notes.append(f"[perf/collectives] using fitted links from {links_path}: "
+                     + " ".join(f"{k}=(B={v.bandwidth_bytes:.3g},a={v.alpha_s:.3g})"
+                                for k, v in sorted(fitted.items())))
+    return names, n, mesh, link_map, ctx, notes
+
+
+def _timed(fn, reps, dev):
+    """Mean µs of ``reps`` calls after one warm-up, the slowest rank's."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = torch.tensor([(time.perf_counter() - t0) / reps * 1e6], dtype=torch.float64,
+                     device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def collectives_bench(dev, factors, sizes_kb, reps=10, links_path=None, order=None,
+                      optical_w=None, bench_json=None) -> None:
+    """The reference's ``collectives_bench`` on this rank of the world (rank
+    0 prints)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import api
+    from repro_torch.core.cost_model import TERARACK, plan_exposure, price
+
+    names, n, mesh, link_map, ctx, notes = _bench_setup(
+        factors, links_path, order=order, optical_w=optical_w)
+    rank = dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    for line in notes:
+        say(line)
+    sys_n = dataclasses.replace(
+        TERARACK, n_nodes=n,
+        wavelengths=optical_w if optical_w else TERARACK.wavelengths)
+    where = ("host CPU under gloo" if dev.type == "cpu" else
+             f"{torch.cuda.get_device_name(dev)} under NCCL")
+    say(f"[perf/collectives] world {n} ranks, mesh {list(factors)}, measured on "
+        f"{where}; modeled with the reference's link constants")
+    bench_rows = []
+    names_t = tuple(names)
+    for kb in sizes_kb:
+        rows = kb * 256 // n * n  # f32 rows, divisible by the rank count
+        x = torch.arange(rows, dtype=torch.float32, device=dev)
+        shard_rows = rows // n
+        xs = x[rank * shard_rows:(rank + 1) * shard_rows].clone()  # this rank's AG shard
+        flat = {
+            "ag": lambda: mesh.all_gather(xs, names_t).reshape(-1),
+            "rs": lambda: mesh.psum_scatter(x, names_t),
+            "ar": lambda: mesh.psum(x, names_t),
+        }
+        entry = {
+            "ag": lambda mode=None: api.all_gather(xs, ctx=ctx, mode=mode),
+            "rs": lambda mode=None: api.reduce_scatter(x, ctx=ctx, mode=mode),
+            "ar": lambda mode=None: api.all_reduce(x, axis=0, ctx=ctx, mode=mode),
+        }
+        ag_search = None
+        for coll in ("ag", "rs", "ar"):
+            fn = entry[coll]
+            want = flat[coll]()
+            shard = x.numel() * x.element_size() / n
+            plan = ctx.plan(coll, shard, shape=tuple(x.shape), dtype=x.dtype,
+                            regime="bandwidth")
+            auto_plan = ctx.plan(coll, shard, shape=tuple(x.shape), dtype=x.dtype)
+            regime = auto_plan.meta.get("regime", "bandwidth")
+            if coll == "ag":
+                ag_search = auto_plan.meta.get("order_search")
+            modeled = {m: price(plan.with_mode(m)).total_s for m in MODES}
+            optical_m = {m: price(plan.with_mode(m), TERARACK).total_s for m in MODES}
+            optical = price(plan, TERARACK)
+            exposed, hidden = plan_exposure(plan)
+            measured = {}
+            for m in MODES:
+                if not _same_bits(fn(m), want):
+                    raise RuntimeError(f"{coll} {kb} KiB {m}: rank {rank} differs "
+                                       f"from the flat collective")
+                measured[m] = _timed(lambda m=m: fn(m), reps, dev)
+            flat_us = _timed(flat[coll], reps, dev)
+            parts = " ".join(
+                f"{m}={modeled[m] * 1e6:.1f}/{optical_m[m] * 1e6:.1f}/{measured[m]:.0f}us"
+                for m in MODES)
+            srch = plan.meta.get("order_search")
+            order_note = ""
+            if srch:
+                order_note = (
+                    f"order[{srch['backend']}]={','.join(srch['order'])} "
+                    f"elec_best={','.join(srch['electrical_best_order'])} "
+                    f"opt_best={','.join(srch['optical_best_order'])} "
+                    f"flipped={srch['flipped']} ")
+            say(f"[perf/collectives] {coll} {kb}KB mesh={list(factors)} "
+                f"electrical/optical/measured: {parts} "
+                f"flat_oneshot={flat_us:.0f}us "
+                f"optical={optical.total_s * 1e6:.1f}us@{optical.steps}steps "
+                f"chosen={plan.mode} chunks={plan.num_chunks} {order_note}"
+                f"stage_modes={list(plan.stage_modes)} "
+                f"exposed={sum(exposed) / 2**10:.0f}KB "
+                f"hidden={sum(hidden) / 2**10:.0f}KB bit-identical")
+
+            lat_plan = auto_plan if regime == "latency" else None
+            if lat_plan is None:
+                try:
+                    lat_plan = ctx.plan(coll, shard, shape=tuple(x.shape),
+                                        dtype=x.dtype, regime="latency")
+                except ValueError:
+                    lat_plan = None
+            lat_row = None
+            if lat_plan is not None:
+                lat_elec = price(lat_plan).total_s
+                lat_opt = price(lat_plan, sys_n)
+                if not _same_bits(fn(None), want):
+                    raise RuntimeError(f"{coll} {kb} KiB auto: rank {rank} differs "
+                                       f"from the flat collective")
+                auto_us = _timed(lambda: fn(None), reps, dev)
+                ring_best = min(modeled.values())
+                lat_row = dict(
+                    elec_us=lat_elec * 1e6, opt_us=lat_opt.total_s * 1e6,
+                    opt_steps=lat_opt.steps, rounds=len(lat_plan.stages),
+                    measured_auto_us=auto_us)
+                say(f"[perf/latency] {coll} {kb}KB regime={regime} "
+                    f"exchange: elec={lat_elec * 1e6:.1f}us vs "
+                    f"ring_best={ring_best * 1e6:.1f}us "
+                    f"optical={lat_opt.total_s * 1e6:.1f}us@{lat_opt.steps}steps "
+                    f"rounds={len(lat_plan.stages)} "
+                    f"measured_auto={auto_us:.0f}us "
+                    f"(auto plans the {regime} family at this size)")
+            else:
+                say(f"[perf/latency] {coll} {kb}KB regime={regime} "
+                    f"exchange=n/a (needs power-of-two axis sizes, n >= 2)")
+            bench_rows.append(dict(
+                collective=coll, kb=kb, shard_bytes=shard, regime=regime,
+                modeled_us={m: v * 1e6 for m, v in modeled.items()},
+                optical_mode_us={m: v * 1e6 for m, v in optical_m.items()},
+                measured_us=measured, flat_oneshot_us=flat_us,
+                optical_us=optical.total_s * 1e6,
+                optical_steps=optical.steps, latency=lat_row))
+        if order and ag_search:
+            say(f"[perf/order] {kb}KB ag: electrical-best="
+                f"{','.join(ag_search['electrical_best_order'])} "
+                f"optical-best={','.join(ag_search['optical_best_order'])} "
+                f"winner[{ag_search['backend']}]={','.join(ag_search['order'])} "
+                f"({ag_search['electrical_s'] * 1e6:.1f}us elec, "
+                f"{ag_search['optical_s'] * 1e6:.1f}us opt"
+                f"@{ag_search['optical_steps']}steps) "
+                f"flipped={ag_search['flipped']} "
+                f"regime={ag_search.get('regime', 'bandwidth')} "
+                f"regime_flipped={ag_search.get('regime_flipped', False)}")
+
+    xovers = {c: ctx.latency_crossover(c) for c in ("ag", "rs", "ar")}
+    xnote = " ".join(
+        f"{c}={'n/a' if b is None else format(b, '.0f') + 'B'}"
+        for c, b in xovers.items())
+    st = ctx.cache_stats
+    say(f"[perf/latency] crossover mesh={list(factors)} {xnote} "
+        f"(electrical; smaller payloads plan exchange chains)")
+    say(f"[perf/latency] cache: latency_plans={st.latency_plans} "
+        f"ring_plans={st.ring_plans} hits={st.hits} misses={st.misses}")
+    if bench_json and rank == 0:
+        doc = {
+            "mesh": list(factors), "axis_names": names,
+            "measured_on": where,
+            "links": {k: {"name": v.name, "bandwidth_bytes": v.bandwidth_bytes,
+                          "alpha_s": v.alpha_s}
+                      for k, v in sorted(link_map.items())},
+            "optical_w": sys_n.wavelengths, "order": order, "reps": reps,
+            "rows": bench_rows, "crossover_bytes": xovers,
+            "cache": dataclasses.asdict(st),
+        }
+        Path(bench_json).write_text(json.dumps(doc, indent=2) + "\n")
+        say(f"[perf/latency] wrote {bench_json}")
+
+
+def _rank_main(rank, world, store, device, kwargs):
+    """One rank of the benchmark world."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import init_world
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    try:
+        dev = init_world(device, world_size=world, rank=rank, store_path=store)
+        collectives_bench(dev, **kwargs)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)  # do not wait on peers that will never answer
+    dist.destroy_process_group()
+
+
+def run_world(world, device, kwargs, timeout_s=WORLD_TIMEOUT_S):
+    """Spawn ``world`` ranks, wait at most ``timeout_s`` and kill whatever
+    is left; raise unless every rank exited 0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, os.path.join(tmp, "store"), device, kwargs))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+                if p.exitcode not in (None, 0):
+                    break
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                p.join(5)
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise RuntimeError(f"perf --collectives: rank exit codes {codes} "
+                           f"(None: killed after {timeout_s} s)")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--collectives", required=True, metavar="F1,F2,...",
+                    help="mesh factors; prod(factors) ranks are spawned")
+    ap.add_argument("--sizes-kb", default="64,1024")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--links", default=None)
+    ap.add_argument("--order", choices=("electrical", "optical"), default=None)
+    ap.add_argument("--optical-w", type=int, default=None)
+    ap.add_argument("--bench-json", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; NCCL, one rank per card) or cpu (gloo)")
+    ap.add_argument("--timeout", type=float, default=WORLD_TIMEOUT_S)
+    args = ap.parse_args(argv)
+    try:
+        factors = [int(f) for f in args.collectives.split(",")]
+        sizes_kb = [int(s) for s in args.sizes_kb.split(",")]
+    except ValueError:
+        ap.error(f"wanted comma-separated integers, got {args.collectives!r} "
+                 f"and {args.sizes_kb!r}")
+    from repro_torch.comms.mesh_utils import check_world_device
+
+    world = math.prod(factors)
+    dev = check_world_device(args.device, world)
+    kwargs = dict(factors=factors, sizes_kb=sizes_kb, reps=args.reps,
+                  links_path=args.links, order=args.order,
+                  optical_w=args.optical_w, bench_json=args.bench_json)
+    run_world(world, dev.type, kwargs, args.timeout)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
