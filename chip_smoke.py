@@ -84,7 +84,22 @@ fails:
    ``[comms/perf]``, ``python -m repro_torch.launch.perf --collectives 2,4
    --sizes-kb 64,4096 --device cpu``, its rows printed.  Each subprocess
    runs in a process group of its own, killed whole on a timeout;
-7. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
+7. tp: the explicit tensor-parallel transformer block
+   (``models.model.transformer_block_tp`` on the executors of phase 6).
+   ``[tp/card]``, an NCCL world of one rank on the card: one full-width
+   granite-3-2b layer (bf16, random weights from a seed), B 4, S 1024, TP
+   and SP, each output on the card, within ``TP_CARD_TOL`` of
+   ``transformer_block_ref`` on the card (and whether it is bit-identical),
+   within ``TP_CPU_RTOL`` of max |ref| of the CPU's f32 block on the same
+   weights (batch row 0), each block launching rmsnorm twice, SwiGLU and
+   flash attention once, and TP, SP and the one-device block timed with
+   CUDA events.  ``[tp/gloo8]``, ``python tests/subproc/torch_tp_world.py
+   --suite full`` on the card machine's host: 8 gloo ranks, the
+   full-width layer in f32 at B 1, S 256, meshes [8] and [2, 4], TP and SP,
+   the fused rings forced on, off and "auto", each rank within 1e-4 of max
+   |ref| of the full layer's block, with ms per block; then ``python -m
+   repro_torch.launch.perf --tp-block 2,4 --device cpu``, its rows printed;
+8. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
    d 4096, bf16) and full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
    block every 6th layer, bf16), random weights from a seed, each through
    ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
@@ -96,7 +111,7 @@ fails:
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the 6 training steps of ``[train/granite]`` and the three serves of
-phase 7, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
+phase 8, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
 phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
@@ -655,6 +670,124 @@ def comms_perf_phase():
           f"[comms/perf] {len(rows)} collective rows, want 6")
 
 
+#: [tp/card]: the explicit TP block against the one-device block, both
+#: bf16 on the card: tests/test_kernels.py:23's bf16 tolerance; against the
+#: CPU's f32 block, the largest error relative to max |CPU block|
+TP_CARD_TOL = (2e-2, 2e-2)
+TP_CPU_RTOL = 2e-2
+TP_CARD = dict(batch=4, seq=1024)
+
+
+def tp_card_phase(cfg, dev):
+    """[tp/card]: ``transformer_block_tp``, TP and SP, in an NCCL world of
+    one rank on the card, on one full-width granite-3-2b layer (bf16, B 4,
+    S 1024): every output on the card, held to ``transformer_block_ref`` on
+    the card and to the CPU's f32 block on the same weights, B1-B3 launched
+    per block as the block predicts, and TP, SP and the one-device block
+    timed with CUDA events."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import FactorizedMesh, api, init_world
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import (
+        shard_tp_layer,
+        tp_block_specs,
+        transformer_block_ref,
+        transformer_block_tp,
+    )
+    from repro_torch.models.model import _layer_init
+    from repro_torch.tree import tree_map
+
+    print("[tp/card] one H100 holds one NCCL rank, so the TP block runs in a world of "
+          "one rank here (size-1 axes); the 8-rank block runs under gloo in [tp/gloo8]",
+          flush=True)
+    B, S = TP_CARD["batch"], TP_CARD["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = _layer_init(gen, cfg, dtype=torch.bfloat16, device=dev)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    with torch.no_grad():
+        ref = transformer_block_ref(layer, cfg, x, positions=pos)
+        # the CPU's f32 block on the same (bf16) weights, batch row 0 (rows
+        # are independent)
+        cpu = transformer_block_ref(tree_map(lambda t: t.float().cpu(), layer), cfg,
+                                    x[:1].float().cpu(), positions=pos[:1].cpu())
+        ref_ms = time_ms(lambda: transformer_block_ref(layer, cfg, x, positions=pos),
+                         reps=10)
+    cpu_max = float(cpu.abs().max())
+    names = ("tp",)
+    none = {n: 0 for n in KERNELS}
+    want_launches = dict(none, rmsnorm=2, swiglu=1, flash_attention=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("cuda", world_size=1, rank=0, store_path=os.path.join(tmp, "store"))
+        try:
+            check(dist.get_backend() == "nccl", f"[tp/card] backend {dist.get_backend()}")
+            mesh = FactorizedMesh([1], names)
+            for sp in (False, True):
+                tag = "sp" if sp else "tp"
+                x_split, specs = tp_block_specs(layer, sequence_parallel=sp)
+                local = shard_tp_layer(layer, specs, mesh, names)
+                with api.comm_context(mesh, names) as ctx, torch.no_grad():
+                    def block():
+                        return transformer_block_tp(local, cfg, x, positions=pos,
+                                                    sequence_parallel=sp)
+                    torch.cuda.synchronize()
+                    for kern in KERNELS.values():
+                        kern.launches = 0
+                    out = block()
+                    torch.cuda.synchronize()
+                    launches = {n: kern.launches for n, kern in KERNELS.items()}
+                    ms = time_ms(block, reps=10)
+                check(out.device.type == "cuda", f"[tp/card] {tag} output on {out.device}")
+                check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                      f"[tp/card] {tag}: shape {tuple(out.shape)} or non-finite values")
+                err = float((out.float() - ref.float()).abs().max())
+                bitwise = torch.equal(out, ref)
+                cpu_err = float((out[:1].float().cpu() - cpu).abs().max()) / cpu_max
+                plans = sorted({f"{p.collective}:{p.mode}" for p in ctx.plans()})
+                print(f"[tp/card] {tag} full granite-3-2b layer bf16 B {B} S {S} on "
+                      f"{out.device}: {ms:.4f} ms per block (one-device block "
+                      f"{ref_ms:.4f} ms); max_abs_err vs the card's one-device block "
+                      f"{err:.3e} (rtol, atol {TP_CARD_TOL}), bit-identical {bitwise}; "
+                      f"vs the CPU's f32 block (batch row 0) {cpu_err:.3e} of max |ref| "
+                      f"(limit {TP_CPU_RTOL}); launches {launches}; plans {plans}",
+                      flush=True)
+                check(torch.allclose(out.float(), ref.float(), rtol=TP_CARD_TOL[0],
+                                     atol=TP_CARD_TOL[1]),
+                      f"[tp/card] {tag} differs from the one-device block")
+                check(cpu_err <= TP_CPU_RTOL, f"[tp/card] {tag} differs from the CPU block")
+                check(launches == want_launches,
+                      f"[tp/card] {tag} launches {launches} != {want_launches}")
+        finally:
+            dist.destroy_process_group()
+    del layer, x, ref
+    torch.cuda.empty_cache()
+
+
+def tp_gloo8_phase():
+    """[tp/gloo8]: the test suite's TP world script (torch only) at full
+    granite-3-2b width on the card machine's host: 8 gloo ranks, meshes
+    [8] and [2, 4], TP and SP, fusion on, off and "auto", f32, B 1, S 256,
+    each rank held to the full layer's block; then ``launch.perf
+    --tp-block 2,4 --device cpu``."""
+    t0 = time.perf_counter()
+    lines = run_group([sys.executable, "tests/subproc/torch_tp_world.py", "--suite", "full",
+                       "--reps", "2", "--timeout", "400"], 460, "[tp/gloo8]")
+    rows = [ln for ln in lines if ln.startswith("[tp/gloo8] block-")]
+    check(len(rows) == 2 * 2 * 3 and all(ln.endswith(" ok") for ln in rows),
+          f"[tp/gloo8] {len(rows)} rows, want {2 * 2 * 3}")
+    lines = run_group([sys.executable, "-m", "repro_torch.launch.perf", "--tp-block", "2,4",
+                       "--device", "cpu", "--timeout", "200"], 260, "[tp/gloo8]")
+    rows = [ln for ln in lines if ln.startswith("[perf/tp-block] ") and " fuse=" in ln]
+    check(len(rows) == 6 and all(ln.endswith("allclose=True") for ln in rows),
+          f"[tp/gloo8] launch.perf --tp-block printed {len(rows)} rows, want 6")
+    print(f"[tp/gloo8] host CPU under gloo: done in {time.perf_counter() - t0:.1f} s")
+
+
 def train_resume_phase(cfg, dev):
     """[train/resume]: reduced granite-3-2b in bf16 through ``Trainer``: 4
     steps and a save, a fresh trainer restored, 2 more steps, against 6
@@ -1190,7 +1323,11 @@ def main() -> int:
     comms_perf_phase()
     torch.cuda.empty_cache()
 
-    # ---- 7. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
+    # ---- 7. the tensor-parallel block: one NCCL rank, 8 gloo ranks ---------
+    tp_card_phase(cfg, dev)
+    tp_gloo8_phase()
+
+    # ---- 8. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
     granite = serve_phase("granite", cfg, dev, lambda L, prefill: dict(
         none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
     rwkv6 = serve_phase("rwkv6", rcfg, dev, lambda L, prefill: dict(

@@ -9,8 +9,11 @@ per-rank code: every op takes this rank's local shard, a
 ``torch.distributed`` ones.  User-facing surface: ``comm_context`` + the
 ``api`` module ops (one context-scoped entry point over the
 CollectivePlan IR); everything else is internals or deprecation shims.
-The collective-matmul ops and ``sharded_decode_attention`` (ROADMAP A6)
-and the verified executor with its fault injection (A10) come later.
+The fused collective-matmul ops (``allgather_matmul``,
+``matmul_reduce_scatter``, whose rings live in
+``collective_matmul.py``) and ``sharded_decode_attention`` are
+ROADMAP A6; the verified executor with its fault injection (A10) comes
+later.
 """
 from .mesh_utils import FactorizedMesh, init_world, make_factorized_mesh  # noqa: F401
 from .staged_allgather import (  # noqa: F401
@@ -45,8 +48,10 @@ from . import api  # noqa: F401
 from .api import (  # noqa: F401
     CommContext,
     PlanPolicy,
+    allgather_matmul,
     comm_context,
     current_context,
+    matmul_reduce_scatter,
 )
 from .collectives import (  # noqa: F401
     ring_all_gather,
@@ -55,3 +60,4 @@ from .collectives import (  # noqa: F401
     hierarchical_all_reduce,
     reduce_scatter,
 )
+from .decode_attention import sharded_decode_attention  # noqa: F401

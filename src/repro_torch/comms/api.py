@@ -22,9 +22,17 @@ invalidated) makes the re-plan observable.
 Every op takes this rank's LOCAL array: the reference's "inside shard_map"
 contract, one process per rank.  The reference's ops also accept a global
 array outside ``shard_map`` and wrap themselves in it; the port has no
-global-array path until a DTensor front end (ROADMAP A12).  The fused
-collective-matmul ops (``allgather_matmul``, ``matmul_reduce_scatter``) are
-ROADMAP A6, and the verified executor (``PlanPolicy(verify=True)``) A10.
+global-array path until a DTensor front end (ROADMAP A12).  The verified
+executor (``PlanPolicy(verify=True)``) is ROADMAP A10.
+
+The fused collective-matmul ops (``allgather_matmul``,
+``matmul_reduce_scatter``) decide per call, through
+``CommContext.decide_fuse``, between the fused rings of
+``comms.collective_matmul`` and the planned collective beside a plain
+matmul.  Every op is differentiable, as the reference's are under
+``jax.grad``: under grad mode the backward of a planned collective is its
+dual collective (AG and RS each other's, AR and a2a their own), planned
+by the same context, and the fused ops carry their own dual rings.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from ..core.planner import (
     matmul_block_time,
     plan_collective_matmul,
 )
+from .collective_matmul import _mm, fused_allgather_matmul, fused_matmul_reduce_scatter
 
 __all__ = [
     "PlanPolicy",
@@ -65,6 +74,8 @@ __all__ = [
     "reduce_scatter",
     "all_reduce",
     "all_to_all",
+    "allgather_matmul",
+    "matmul_reduce_scatter",
 ]
 
 
@@ -946,6 +957,43 @@ def _run_local(ctx, y, plan, axis):
     return execute_plan(y, plan, axis=axis, mesh=ctx.mesh)
 
 
+#: the collective whose result is the cotangent of each one's input (the
+#: transpose of a sum-of-ranks loss): AG and RS swap, AR and a2a are their
+#: own duals (a tiled all-to-all is an involution)
+_DUAL = {"ag": "rs", "rs": "ag", "ar": "ar", "a2a": "a2a"}
+
+
+class _Collective(torch.autograd.Function):
+    """A collective under grad mode: ``run`` forward, the dual collective
+    ``dual`` backward.  Both are closures over the context and mesh, so the
+    backward needs no installed context (autograd may run it on a thread
+    of its own)."""
+
+    @staticmethod
+    def forward(fctx, y, run, dual):
+        fctx.dual = dual
+        return run(y)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.dual(g.contiguous()), None, None
+
+
+def _differentiable(y, run, collective, ctx, names, axis):
+    """``run(y)``, carrying the gradient to ``y`` through the dual
+    collective when grad mode is on and ``y`` requires it."""
+    if not (torch.is_grad_enabled() and y.requires_grad):
+        return run(y)
+    op = {"ag": all_gather, "rs": reduce_scatter, "ar": all_reduce,
+          "a2a": all_to_all}[_DUAL[collective]]
+    return _Collective.apply(y, run, lambda g: op(g, axis=axis, axes=names, ctx=ctx))
+
+
+def _run_planned(ctx, y, plan, axis, names):
+    return _differentiable(y, lambda v: _run_local(ctx, v, plan, axis),
+                           plan.collective, ctx, names, axis)
+
+
 # --------------------------------------------------------------------------
 # module-level ops
 # --------------------------------------------------------------------------
@@ -970,7 +1018,7 @@ def all_gather(
         axis += x.dim()
     plan, _ = _local_plan(ctx, "ag", names, x, axis,
                           mode=mode, num_chunks=num_chunks, scattered=True)
-    return _run_local(ctx, x, plan, axis)
+    return _run_planned(ctx, x, plan, axis, names)
 
 
 def reduce_scatter(
@@ -991,7 +1039,7 @@ def reduce_scatter(
         axis += x.dim()
     plan, _ = _local_plan(ctx, "rs", names, x, axis,
                           mode=mode, num_chunks=num_chunks, scattered=False)
-    return _run_local(ctx, x, plan, axis)
+    return _run_planned(ctx, x, plan, axis, names)
 
 
 def all_reduce(
@@ -1015,10 +1063,10 @@ def all_reduce(
         axis += x.dim()
     n_total = math.prod(ctx._sizes(names).values())
     if x.shape[axis] % n_total:  # before planning: don't cache a plan never run
-        return mesh.psum(x, names)
+        return _differentiable(x, lambda v: mesh.psum(v, names), "ar", ctx, names, axis)
     plan, _ = _local_plan(ctx, "ar", names, x, axis,
                           mode=mode, num_chunks=num_chunks, scattered=False)
-    return _run_local(ctx, x, plan, axis)
+    return _run_planned(ctx, x, plan, axis, names)
 
 
 def all_to_all(
@@ -1047,4 +1095,95 @@ def all_to_all(
                     shape=tuple(x.shape), dtype=x.dtype)
     plan = _apply_overrides(plan, mode, num_chunks)
     plan = _fit_plan(plan, x.shape[axis], n_total)
-    return _run_local(ctx, x, plan, axis)
+    return _run_planned(ctx, x, plan, axis, names)
+
+
+# --------------------------------------------------------------------------
+# fused collective-matmul ops
+# --------------------------------------------------------------------------
+
+def allgather_matmul(
+    x: torch.Tensor,
+    w,
+    *,
+    axis: int = 0,
+    axes: Optional[Sequence[str]] = None,
+    ctx: Optional[CommContext] = None,
+    fuse: object = None,
+):
+    """``all_gather(x) @ w`` with the gather planned by the context and,
+    when the policy or the overlap model says so, run as fused rings that
+    multiply each block the hop it lands
+    (``comms.collective_matmul.fused_allgather_matmul``).
+
+    ``x`` is this rank's (scattered) block and ``w`` the local column
+    slice; ``w`` may be one weight or a sequence sharing the gather (SwiGLU
+    gate+up).  Returns ``(gathered_x, out)`` with ``out`` matching ``w``'s
+    structure.  ``fuse``: None (the context policy) / True / False /
+    ``"auto"``."""
+    ctx, names = _resolve(ctx, axes)
+    mesh = _require_mesh(ctx, "allgather_matmul")
+    single = not isinstance(w, (list, tuple))
+    ws = (w,) if single else tuple(w)
+    if axis < 0:
+        axis += x.dim()
+    plan, _ = _local_plan(ctx, "ag", names, x, axis,
+                          mode=None, num_chunks=None, scattered=True)
+    rows = x.numel() // x.shape[-1]
+    d_in, d_out = ws[0].shape[-2], ws[0].shape[-1]
+    do_fuse = ctx.decide_fuse(names, rows, d_in, d_out, x.element_size(),
+                              n_matmuls=len(ws), fuse=fuse)
+    if do_fuse:
+        # fused rings everywhere: the fusion decision already says the
+        # per-hop decomposition wins, so the plain collective's stage modes
+        # (a tradeoff with no compute to hide) don't apply.  A latency
+        # (exchange) plan has no ring order to fuse against: re-plan in the
+        # bandwidth family for the stage order.
+        if any(s.mode == "exchange" for s in plan.stages):
+            plan, _ = _local_plan(ctx, "ag", names, x, axis, mode=None,
+                                  num_chunks=None, scattered=True,
+                                  regime="bandwidth")
+        g, outs = fused_allgather_matmul(x, ws, names, plan.axes, axis, mesh)
+    else:
+        g = _run_planned(ctx, x, plan, axis, names)
+        outs = tuple(_mm(g, wi) for wi in ws)
+    return g, (outs[0] if single else outs)
+
+
+def matmul_reduce_scatter(
+    h: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    axis: int = 0,
+    axes: Optional[Sequence[str]] = None,
+    ctx: Optional[CommContext] = None,
+    fuse: object = None,
+) -> torch.Tensor:
+    """``psum_scatter(h @ w)`` with the combine planned by the context and,
+    when fusion wins, the block matmuls feeding the ring just-in-time
+    (``comms.collective_matmul.fused_matmul_reduce_scatter``).
+
+    ``h`` is this rank's full-length activation and ``w`` the local row
+    slice; the output is this rank's block of the sum along ``axis``."""
+    ctx, names = _resolve(ctx, axes)
+    mesh = _require_mesh(ctx, "matmul_reduce_scatter")
+    if axis < 0:
+        axis += h.dim()
+    n_total = math.prod(ctx._sizes(names).values())
+    out_bytes = (h.numel() // h.shape[-1]) * w.shape[-1] * h.element_size()
+    shape = tuple(h.shape) + tuple(w.shape)
+    plan = ctx.plan("rs", out_bytes / n_total, axes=names, shape=shape, dtype=h.dtype)
+    # the RS runs on the matmul OUTPUT: when the scatter axis is the
+    # feature axis, its length is w's d_out, not h's contracted d_in
+    out_len = w.shape[-1] if axis == h.dim() - 1 else h.shape[axis]
+    plan = _fit_plan(plan, out_len, n_total)
+    rows = h.numel() // h.shape[-1]
+    do_fuse = ctx.decide_fuse(names, max(1, rows // n_total), w.shape[0], w.shape[1],
+                              h.element_size(), fuse=fuse)
+    if do_fuse:
+        if any(s.mode == "exchange" for s in plan.stages):
+            # fused rings need a ring stage order, not an exchange chain
+            plan = ctx.plan("rs", out_bytes / n_total, axes=names, shape=shape,
+                            dtype=h.dtype, regime="bandwidth")
+        return fused_matmul_reduce_scatter(h, w, names, plan.axes, axis, mesh)
+    return _run_planned(ctx, _mm(h, w), plan, axis, names)

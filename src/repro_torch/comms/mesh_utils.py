@@ -252,6 +252,13 @@ class FactorizedMesh:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g.group)
         return out
 
+    def pmax(self, y: torch.Tensor, names) -> torch.Tensor:
+        """``lax.pmax(y, names)``: the members' elementwise maximum."""
+        g = self.group(names)
+        out = y.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g.group)
+        return out
+
     def all_to_all(self, y: torch.Tensor, names, dim: int = 0) -> torch.Tensor:
         """``lax.all_to_all(y, names, split_axis=dim, concat_axis=dim,
         tiled=True)``: slice j of ``dim`` goes to member j, and slice j of

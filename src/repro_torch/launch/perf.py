@@ -1,5 +1,5 @@
-"""Staged-collective microbenchmarks of the port (the reference's
-``launch/perf.py --collectives``):
+"""Staged-collective and tensor-parallel block benchmarks of the port (the
+reference's ``launch/perf.py --collectives`` and ``--tp-block``):
 
   PYTHONPATH=src python -m repro_torch.launch.perf --collectives 2,4 \\
       --sizes-kb 64,1024 --device cpu
@@ -35,9 +35,26 @@ ICI), not this machine's, unless ``--links`` gives fitted ones.
                        search (default: TERARACK's 64)
   --bench-json PATH    write the sweep as JSON
 
-The reference's ``--calibrate``, ``--tp-block``, ``--moe``, ``--faults``,
-``--cluster`` and ``--reconfig`` sections and its hill-climb mode are
-ROADMAP A12.
+  PYTHONPATH=src python -m repro_torch.launch.perf --tp-block 2,4 --device cpu
+
+spawns the same world and runs the explicit tensor-parallel transformer
+block (``models.model.transformer_block_tp``) on each rank's slice of one
+layer, TP (replicated activations, staged all-reduce combines) and SP
+(sequence shards, the fused all-gather -> matmul and matmul ->
+reduce-scatter), each with the context's collective-matmul fusion forced
+on, off and ``"auto"``.  Per variant it prints the plans the context
+cached and the collectives one block issued (``ctx.plan_usage()``), the
+modeled electrical and optical time of those very plans weighted by their
+issue count, the measured time of one block (the slowest rank's mean) against
+the unsharded block (``transformer_block_ref`` on the full layer, one
+rank), the modes and the cache counters, after checking the explicit block
+against the unsharded one (atol 2e-5, the reference's; f32).  The layer is
+the reference's ``tp_block_bench`` one (d 8N, N heads, d_ff 16N for N
+ranks) with head dim 16, the flash kernel's smallest (the reference's is
+8); ``--seq`` and ``--batch`` size the input.
+
+The reference's ``--calibrate``, ``--moe``, ``--faults``, ``--cluster`` and
+``--reconfig`` sections and its hill-climb mode are ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -280,7 +297,94 @@ def collectives_bench(dev, factors, sizes_kb, reps=10, links_path=None, order=No
         say(f"[perf/latency] wrote {bench_json}")
 
 
-def _rank_main(rank, world, store, device, kwargs):
+#: the explicit block against the unsharded one (the reference's atol)
+TP_BLOCK_ATOL = 2e-5
+
+
+def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> list:
+    """The reference's ``tp_block_bench`` on this rank of the world (rank 0
+    prints): the explicit TP and SP block against the unsharded block, with
+    modeled electrical and optical times off the SAME CollectivePlan
+    objects the context cached while the block ran."""
+    import torch
+
+    from repro_torch.comms import api
+    from repro_torch.configs import ModelConfig
+    from repro_torch.core.cost_model import TERARACK, price
+    from repro_torch.models import (
+        shard_tp_layer,
+        tp_block_specs,
+        transformer_block_ref,
+        transformer_block_tp,
+    )
+    from repro_torch.models.model import _layer_init
+
+    names, n, mesh, link_map, _, notes = _bench_setup(factors, links_path)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    for line in notes:
+        say(line)
+    cfg = ModelConfig(
+        name="tp-block-bench", family="dense", dtype="float32", remat=False,
+        qkv_bias=False, qk_norm=False, num_layers=2, d_model=8 * n,
+        num_heads=n, num_kv_heads=n, head_dim=16, d_ff=16 * n, vocab_size=128)
+    gen = torch.Generator(device=dev).manual_seed(0)  # the same layer on every rank
+    layer = _layer_init(gen, cfg, dtype=torch.float32, device=dev)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+    positions = torch.arange(seq, device=dev).expand(batch, seq)
+    where = ("host CPU under gloo" if dev.type == "cpu" else
+             f"{torch.cuda.get_device_name(dev)} under NCCL")
+    say(f"[perf/tp-block] world {n} ranks, mesh {list(factors)}, B {batch} S {seq} "
+        f"d {cfg.d_model} heads {cfg.num_heads} d_ff {cfg.d_ff} f32, measured on {where}; "
+        f"modeled with the reference's link constants")
+    with torch.no_grad():
+        ref = transformer_block_ref(layer, cfg, x, positions=positions)
+        t_ref = _timed(lambda: transformer_block_ref(layer, cfg, x, positions=positions),
+                       reps, dev)
+    rows = []
+    for sp in (False, True):
+        tag = "sp" if sp else "tp"
+        x_split, specs = tp_block_specs(layer, sequence_parallel=sp)
+        local = shard_tp_layer(layer, specs, mesh, names)
+        xl, want = x, ref
+        if x_split is not None:
+            idx, blk = mesh.axis_index(names), seq // n
+            xl = x.narrow(x_split, idx * blk, blk).contiguous()
+            want = ref.narrow(x_split, idx * blk, blk)
+        for fuse in (True, False, "auto"):
+            with api.comm_context(mesh, tuple(names), links=link_map, fuse=fuse) as ctx, \
+                    torch.no_grad():
+                def block():
+                    return transformer_block_tp(local, cfg, xl, positions=positions,
+                                                sequence_parallel=sp)
+                ok = bool(torch.allclose(block(), want, rtol=0, atol=TP_BLOCK_ATOL))
+                # every collective one block issued, off the context's cache,
+                # priced from the very objects executed and weighted by how
+                # often each deduplicated plan was issued
+                usage = ctx.plan_usage()
+                issued = sum(c for _, c in usage)
+                elec = sum(price(p).total_s * c for p, c in usage)
+                opt = sum(price(p, dataclasses.replace(TERARACK, n_nodes=p.n)).total_s * c
+                          for p, c in usage)
+                t_explicit = _timed(block, reps, dev)
+            row = dict(variant=tag, fuse=fuse, plans=len(usage), issued=issued,
+                       modeled_elec_us=elec * 1e6, modeled_opt_us=opt * 1e6,
+                       measured_tp_us=t_explicit, measured_unsharded_us=t_ref,
+                       allclose=ok, cache=dataclasses.asdict(ctx.cache_stats),
+                       modes=sorted({p.mode for p, _ in usage}))
+            rows.append(row)
+            say(f"[perf/tp-block] {tag} fuse={fuse} mesh={list(factors)} B={batch} S={seq} "
+                f"d={cfg.d_model}: plans={row['plans']} issued={issued} "
+                f"modeled elec={row['modeled_elec_us']:.1f}us "
+                f"optical={row['modeled_opt_us']:.1f}us | measured "
+                f"explicit={t_explicit:.0f}us unsharded={t_ref:.0f}us "
+                f"modes={row['modes']} cache={row['cache']} allclose={ok}")
+            if not ok:
+                raise RuntimeError(f"tp-block {tag} fuse={fuse}: the explicit block "
+                                   f"diverged from the unsharded block")
+    return rows
+
+
+def _rank_main(rank, world, store, device, section, kwargs):
     """One rank of the benchmark world."""
     import torch
     import torch.distributed as dist
@@ -291,7 +395,7 @@ def _rank_main(rank, world, store, device, kwargs):
         torch.set_num_threads(1)
     try:
         dev = init_world(device, world_size=world, rank=rank, store_path=store)
-        collectives_bench(dev, **kwargs)
+        {"collectives": collectives_bench, "tp_block": tp_block_bench}[section](dev, **kwargs)
         dist.barrier()
     except BaseException:
         traceback.print_exc()
@@ -301,13 +405,14 @@ def _rank_main(rank, world, store, device, kwargs):
     dist.destroy_process_group()
 
 
-def run_world(world, device, kwargs, timeout_s=WORLD_TIMEOUT_S):
-    """Spawn ``world`` ranks, wait at most ``timeout_s`` and kill whatever
-    is left; raise unless every rank exited 0."""
+def run_world(world, device, section, kwargs, timeout_s=WORLD_TIMEOUT_S):
+    """Spawn ``world`` ranks running ``section``, wait at most ``timeout_s``
+    and kill whatever is left; raise unless every rank exited 0."""
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, os.path.join(tmp, "store"), device, kwargs))
+                             args=(r, world, os.path.join(tmp, "store"), device,
+                                   section, kwargs))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -325,15 +430,20 @@ def run_world(world, device, kwargs, timeout_s=WORLD_TIMEOUT_S):
                 p.join(5)
     codes = [p.exitcode for p in procs]
     if any(c != 0 for c in codes):
-        raise RuntimeError(f"perf --collectives: rank exit codes {codes} "
+        raise RuntimeError(f"perf --{section.replace('_', '-')}: rank exit codes {codes} "
                            f"(None: killed after {timeout_s} s)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--collectives", required=True, metavar="F1,F2,...",
-                    help="mesh factors; prod(factors) ranks are spawned")
+    section = ap.add_mutually_exclusive_group(required=True)
+    section.add_argument("--collectives", metavar="F1,F2,...",
+                         help="mesh factors; prod(factors) ranks are spawned")
+    section.add_argument("--tp-block", metavar="F1,F2,...",
+                         help="mesh factors of the TP block; prod(factors) ranks")
     ap.add_argument("--sizes-kb", default="64,1024")
+    ap.add_argument("--seq", type=int, default=32, help="--tp-block: sequence length")
+    ap.add_argument("--batch", type=int, default=2, help="--tp-block: batch")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--links", default=None)
     ap.add_argument("--order", choices=("electrical", "optical"), default=None)
@@ -343,20 +453,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="cuda (default; NCCL, one rank per card) or cpu (gloo)")
     ap.add_argument("--timeout", type=float, default=WORLD_TIMEOUT_S)
     args = ap.parse_args(argv)
+    spec = args.collectives or args.tp_block
     try:
-        factors = [int(f) for f in args.collectives.split(",")]
+        factors = [int(f) for f in spec.split(",")]
         sizes_kb = [int(s) for s in args.sizes_kb.split(",")]
     except ValueError:
-        ap.error(f"wanted comma-separated integers, got {args.collectives!r} "
+        ap.error(f"wanted comma-separated integers, got {spec!r} "
                  f"and {args.sizes_kb!r}")
     from repro_torch.comms.mesh_utils import check_world_device
 
     world = math.prod(factors)
     dev = check_world_device(args.device, world)
-    kwargs = dict(factors=factors, sizes_kb=sizes_kb, reps=args.reps,
-                  links_path=args.links, order=args.order,
-                  optical_w=args.optical_w, bench_json=args.bench_json)
-    run_world(world, dev.type, kwargs, args.timeout)
+    if args.collectives:
+        section = "collectives"
+        kwargs = dict(factors=factors, sizes_kb=sizes_kb, reps=args.reps,
+                      links_path=args.links, order=args.order,
+                      optical_w=args.optical_w, bench_json=args.bench_json)
+    else:
+        if args.seq % world:
+            ap.error(f"--seq {args.seq} must split over the {world} ranks (SP)")
+        section = "tp_block"
+        kwargs = dict(factors=factors, reps=args.reps, links_path=args.links,
+                      seq=args.seq, batch=args.batch)
+    run_world(world, dev.type, section, kwargs, args.timeout)
     return 0
 
 

@@ -1,5 +1,5 @@
 """Dense, rwkv6 and zamba2 decoders of the port (the counterpart of ``repro.models``)."""
-from .convert import from_jax_params  # noqa: F401
+from .convert import from_jax_params, shard_tp_layer  # noqa: F401
 from .model import (  # noqa: F401
     apply_head,
     decode_step,
@@ -7,4 +7,7 @@ from .model import (  # noqa: F401
     init_decode_state,
     init_params,
     loss_fn,
+    tp_block_specs,
+    transformer_block_ref,
+    transformer_block_tp,
 )

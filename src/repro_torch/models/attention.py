@@ -1,7 +1,8 @@
 """GQA attention block: RoPE, optional qk-norm / QKV bias, KV cache.
 
-The counterpart of ``repro/models/attention.py`` on one device (the
-tensor-parallel output projections wait for the collectives port).
+The counterpart of ``repro/models/attention.py``: the one-device block
+and the explicit tensor-parallel output projections (``attention_tp_out``,
+``attention_tp_out_sp``), whose combines the active ``comm_context`` plans.
 Prefill runs the flash path (``kernels.ops.flash_attention``: the CUDA
 kernel on the card); decode attends one query against the padded cache
 with a position mask, on the plain path in both packages.
@@ -11,15 +12,17 @@ in place: the ``(B, Hkv, T, hd)`` views handed in are updated and returned.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..comms import api
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
 
-__all__ = ["attn_init", "attention_heads", "attention"]
+__all__ = ["attn_init", "attention_heads", "attention", "attention_tp_out",
+           "attention_tp_out_sp"]
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -48,15 +51,24 @@ def attention_heads(
     positions: torch.Tensor,  # (B, S) absolute positions
     kv_cache: Optional[KVCache] = None,  # (B, Hkv, T, hd) x2, written in place
     cache_pos: int = 0,  # position being written
+    qkv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """QKV, RoPE and attention, up to (not including) the output
-    projection.  Returns the (B, S, H*hd) head outputs and the cache."""
+    projection.  Returns the (B, S, H*hd) head outputs and the cache.
+
+    ``qkv`` optionally supplies precomputed (pre-reshape) projections: the
+    SP path computes them fused with the sequence all-gather
+    (``api.allgather_matmul``) and hands them in here."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q = dense(p["wq"], x).reshape(B, S, H, hd)
-    k = dense(p["wk"], x).reshape(B, S, Hkv, hd)
-    v = dense(p["wv"], x).reshape(B, S, Hkv, hd)
+    if qkv is None:
+        q, k, v = dense(p["wq"], x), dense(p["wk"], x), dense(p["wv"], x)
+    else:
+        q, k, v = qkv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -106,3 +118,47 @@ def attention(
     out, new_cache = attention_heads(
         p, cfg, x, positions=positions, kv_cache=kv_cache, cache_pos=cache_pos)
     return dense(p["wo"], out), new_cache
+
+
+def attention_tp_out(
+    p: Dict,
+    out_local: torch.Tensor,  # (B, S, local_q_dim): this rank's heads
+    axis_names: Optional[Sequence[str]] = None,
+    *,
+    num_chunks: Optional[int] = None,
+    ctx=None,
+) -> torch.Tensor:
+    """Explicit tensor-parallel output projection on this rank's heads.
+
+    Heads are sharded over the context axes; ``p["wo"]`` holds the matching
+    rows, so the local matmul is a partial sum over head shards, which the
+    context-planned all-reduce combines.  ``axis_names``/``num_chunks``
+    are legacy overrides.
+    """
+    partial = dense(p["wo"], out_local)
+    return api.all_reduce(partial, axis=-1, ctx=ctx, axes=axis_names,
+                          num_chunks=api.legacy_chunks(num_chunks))
+
+
+def attention_tp_out_sp(
+    p: Dict,
+    out_local: torch.Tensor,  # (B, S, local_q_dim): this rank's heads
+    axis_names: Optional[Sequence[str]] = None,
+    *,
+    seq_axis: int = 1,
+    fuse: object = None,
+    ctx=None,
+) -> torch.Tensor:
+    """Sequence-parallel TP output projection on this rank's heads.
+
+    Like ``attention_tp_out`` but combining back to *sequence shards*:
+    ``psum_scatter(out_local @ wo)`` along ``seq_axis``, planned and (when
+    the overlap model wins) fused per block by the context
+    (``api.matmul_reduce_scatter``).  A wo bias, if present, is added once
+    to the scattered output, never into the partial sums.
+    """
+    out = api.matmul_reduce_scatter(out_local, p["wo"]["w"], axis=seq_axis,
+                                    axes=axis_names, ctx=ctx, fuse=fuse)
+    if "b" in p["wo"]:
+        out = out + p["wo"]["b"]
+    return out

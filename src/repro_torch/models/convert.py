@@ -9,10 +9,13 @@ the arrays to torch; subtrees outside ``layers`` (zamba2's
 ``shared_block``) are moved as they are.  Each leaf keeps the dtype the
 reference gave it: rwkv6's ``w0`` and ``u`` and Mamba2's ``a_log``,
 ``d_skip`` and ``dt_bias`` stay f32 in a bf16 model, as in the reference.
+
+``shard_tp_layer`` cuts one full layer into this rank's tensor-parallel
+slice, the counterpart of the reference's ``shard_map`` in_specs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -20,7 +23,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "shard_tp_layer"]
 
 #: numpy dtype name (``ml_dtypes`` names jax's bfloat16) -> torch dtype
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -50,3 +53,34 @@ def from_jax_params(np_tree: Dict, cfg: ModelConfig,
     params["layers"] = [_map(layers, lambda a, i=i: to_torch(np.asarray(a)[i]))
                         for i in range(cfg.num_layers)]
     return params
+
+
+def shard_tp_layer(layer: Dict, specs: Dict, mesh, names: Sequence[str]) -> Dict:
+    """This rank's slice of ``layer`` under ``specs`` (a tree of the same
+    keys whose leaves are the dimension split over the axis tuple
+    ``names``, or None for a replicated leaf, as
+    ``model.tp_block_specs`` gives them).
+
+    A split dimension is cut into ``mesh.axis_size(names)`` equal blocks
+    and this rank takes block ``mesh.axis_index(names)``: the row-major
+    index over the tuple in the order given, as a ``PartitionSpec`` with a
+    tuple of mesh axes linearises it (on a [2, 4] mesh named ("ta", "tb"),
+    rank r takes block r under ("ta", "tb"), and block 2 * (r % 4) + r // 4
+    under ("tb", "ta")).  Replicated leaves are returned as they are."""
+    n = mesh.axis_size(names)
+    idx = mesh.axis_index(names)
+
+    def cut(a: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        if dim is None:
+            return a
+        if a.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(a.shape)} does not split into {n}")
+        blk = a.shape[dim] // n
+        return a.narrow(dim, idx * blk, blk).contiguous()
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return cut(tree, spec)
+
+    return walk(layer, specs)

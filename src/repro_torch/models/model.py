@@ -35,25 +35,47 @@ Training: ``loss_fn`` runs ``forward(..., head_mode="none")`` and the
 sequence-chunked cross entropy ``_chunked_xent``.  Where ``cfg.remat`` is
 true and grad mode is on, each layer body runs under
 ``torch.utils.checkpoint`` (its activations are recomputed in the
-backward), as the reference's ``_maybe_checkpoint`` wraps its scan body.
+backward), as the reference's ``_maybe_checkpoint`` wraps its scan body:
+``remat_policy="full"`` recomputes everything, ``"dots"`` saves the
+outputs of the matrix products without a batch dimension.
+
+The explicit tensor-parallel block (``transformer_block_tp``, with
+``tp_block_specs`` and ``convert.shard_tp_layer`` to cut a full layer into
+this rank's slice) runs one process per rank on the collectives of
+``repro_torch.comms``; ``transformer_block_ref`` is the same block on the
+full layer.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import attention, attn_init
+from .attention import (
+    attention,
+    attention_heads,
+    attention_tp_out,
+    attention_tp_out_sp,
+    attn_init,
+)
 from .layers import dense, rmsnorm, rmsnorm_init
 from .mamba2 import mamba2_block, mamba2_init, mamba2_state_init
-from .mlp import mlp, mlp_init
+from .mlp import ffn_apply_tp, ffn_apply_tp_sp, mlp, mlp_init
 from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
 
 __all__ = ["init_params", "init_decode_state", "forward", "apply_head", "loss_fn",
-           "decode_step", "torch_dtype"]
+           "decode_step", "torch_dtype", "transformer_block_tp", "transformer_block_ref",
+           "tp_block_specs"]
 
 Device = Union[str, torch.device, None]
 
@@ -191,16 +213,35 @@ def _attn_block(cfg: ModelConfig, block: Dict, x: torch.Tensor, positions: torch
     return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
 
 
+#: the matrix products without a batch dimension: the operators whose
+#: outputs ``remat_policy="dots"`` saves (``bmm`` and ``einsum``'s batched
+#: products are recomputed, as ``checkpoint_dots_with_no_batch_dims``
+#: recomputes a ``dot_general`` with batch dimensions)
+_DOTS_SAVED = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _maybe_checkpoint(cfg: ModelConfig, body: Callable) -> Callable:
     """``body`` itself, or ``body`` under ``torch.utils.checkpoint`` where
     ``cfg.remat`` is true and grad mode is on (the reference's
-    ``_maybe_checkpoint``: without a gradient, remat changes nothing)."""
+    ``_maybe_checkpoint``: without a gradient, remat changes nothing).
+    ``remat_policy="dots"`` keeps the products of ``_DOTS_SAVED`` and
+    recomputes the rest, the port's counterpart of the reference's
+    ``checkpoint_dots_with_no_batch_dims``; ``"full"`` recomputes
+    everything.  Any other policy raises (the reference would silently
+    treat it as ``"full"``)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return body
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port has only 'full' "
-            f"(ROADMAP queue A, A6)")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected 'full' or 'dots'")
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *args: checkpoint(body, *args, use_reentrant=False,
+                                        context_fn=context_fn)
     return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
@@ -343,3 +384,115 @@ def decode_step(
     logits, state = forward(cfg, params, {"tokens": tokens}, cache=state,
                             cache_pos=cache_pos)
     return logits[:, -1], state
+
+
+# --------------------------------------------------------------------------
+# explicit-TP transformer block (context collectives)
+# --------------------------------------------------------------------------
+
+_TP_COL = frozenset({"wq", "wk", "wv", "gate", "up"})   # column-parallel
+_TP_ROW = frozenset({"wo", "down"})                     # row-parallel
+
+
+def _tp_local_cfg(cfg: ModelConfig, n: int) -> ModelConfig:
+    if cfg.num_heads % n or cfg.num_kv_heads % n:
+        raise ValueError(
+            f"TP over {n} devices needs num_heads ({cfg.num_heads}) and "
+            f"num_kv_heads ({cfg.num_kv_heads}) divisible by it")
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // n, num_kv_heads=cfg.num_kv_heads // n)
+
+
+def transformer_block_tp(
+    layer: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d) replicated; SP: (B, S_local, d) seq shards
+    *,
+    positions: torch.Tensor,  # (B, S): the full sequence in both variants
+    ctx=None,
+    sequence_parallel: bool = False,
+    seq_axis: int = 1,
+) -> torch.Tensor:
+    """The full explicit-TP transformer block on this rank's slice, running
+    entirely on context collectives (``repro_torch.comms.api``): the
+    per-rank counterpart of the reference's ``shard_map`` block, and equal
+    in value to ``transformer_block_ref`` on the full layer.
+
+    ``layer`` holds this rank's TP slices (``tp_block_specs`` names the
+    split of each leaf, ``convert.shard_tp_layer`` cuts them): QKV and
+    gate/up column-parallel, wo/down row-parallel, norms replicated.
+
+    * **TP** (default): activations replicated; attention runs on the
+      local heads, and both combine points are context-planned staged
+      all-reduces.
+    * **SP** (``sequence_parallel=True``): activations arrive
+      sequence-sharded; the QKV projections share ONE context-planned
+      all-gather (``api.allgather_matmul``: each gathered block projected
+      the hop it lands), and both combines return to sequence shards via
+      just-in-time ``api.matmul_reduce_scatter``.
+
+    All mode/chunking/fusion/stage-order decisions come from the active
+    :func:`repro_torch.comms.api.comm_context` (or the explicit ``ctx``).
+    """
+    from ..comms import api
+
+    c = ctx if ctx is not None else api.current_context()
+    names = c._names(None)
+    lcfg = _tp_local_cfg(cfg, math.prod(c._sizes(names).values()))
+    ap = layer["attn"]
+
+    h = rmsnorm(layer["ln1"], x, cfg.norm_eps)
+    if sequence_parallel:
+        hg, (q, k, v) = api.allgather_matmul(
+            h, (ap["wq"]["w"], ap["wk"]["w"], ap["wv"]["w"]), axis=seq_axis, ctx=c)
+        # biases stay out of the fused ring: added once to the projections
+        if "b" in ap["wq"]:
+            q, k, v = q + ap["wq"]["b"], k + ap["wk"]["b"], v + ap["wv"]["b"]
+        heads, _ = attention_heads(ap, lcfg, hg, positions=positions, qkv=(q, k, v))
+        x = x + attention_tp_out_sp(ap, heads, seq_axis=seq_axis, ctx=c)
+        h2 = rmsnorm(layer["ln2"], x, cfg.norm_eps)
+        return x + ffn_apply_tp_sp(layer["ffn"], h2, seq_axis=seq_axis, ctx=c)
+
+    heads, _ = attention_heads(ap, lcfg, h, positions=positions)
+    x = x + attention_tp_out(ap, heads, ctx=c)
+    h2 = rmsnorm(layer["ln2"], x, cfg.norm_eps)
+    return x + ffn_apply_tp(layer["ffn"], h2, ctx=c)
+
+
+def transformer_block_ref(
+    layer: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    positions: torch.Tensor,
+) -> torch.Tensor:
+    """The same block on the full (unsharded) layer, on one device: the
+    block that serving and training run (``_attn_block``, no KV cache)."""
+    return _attn_block(cfg, layer, x, positions, None, 0)
+
+
+def tp_block_specs(layer: Dict, *, sequence_parallel: bool = False,
+                   seq_axis: int = 1) -> Tuple[Optional[int], Dict]:
+    """``(x_split, layer_specs)`` for ``transformer_block_tp``: the
+    dimension of each leaf split over the TP axis tuple, the counterpart of
+    the reference's ``shard_map`` in_specs.  QKV/gate/up are
+    column-parallel (``-1``: the weight's columns, the bias itself), wo/down
+    row-parallel (``0`` for the weight, ``None`` for a bias), everything
+    else replicated (``None``); ``x`` is replicated (TP, ``None``) or split
+    on ``seq_axis`` (SP).  ``convert.shard_tp_layer`` applies them."""
+
+    def walk(tree, proj):
+        out = {}
+        for k, v in tree.items():
+            p = k if k in _TP_COL | _TP_ROW else proj
+            if isinstance(v, dict):
+                out[k] = walk(v, p)
+            elif p in _TP_COL:
+                out[k] = -1
+            elif p in _TP_ROW:
+                out[k] = 0 if k == "w" else None
+            else:
+                out[k] = None
+        return out
+
+    return (seq_axis if sequence_parallel else None), walk(layer, None)

@@ -1,10 +1,15 @@
 """Optimizer of the port (the counterpart of ``repro.optim``).
 
-The sharding specs (``opt_state_specs``) and ZeRO-1 (``optim/zero1.py``)
-wait for the collectives port (ROADMAP queue A, A5b and A6)."""
+``zero1`` holds the explicit ZeRO-1 gradient sharding over a data-parallel
+world (ROADMAP A6); the sharding specs (``opt_state_specs``) come with the
+data-parallel training loop (ROADMAP A12)."""
 from .adamw import (  # noqa: F401
     OptimizerConfig,
     adamw_init,
     adamw_update,
     cosine_lr,
+)
+from .zero1 import (  # noqa: F401
+    zero1_shard_grads,
+    zero1_unshard_params,
 )

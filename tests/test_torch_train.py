@@ -149,15 +149,60 @@ def test_recurrent_loss_and_gradients_match_reference(arch):
     _assert_trees_close(_ref_layout(grads), _jax_flat(jg), **GRAD_TOL)
 
 
+def test_granite_remat_dots_matches_full_and_reference():
+    """``remat_policy="dots"``: the loss and every gradient equal
+    ``"full"``'s at 1e-6 and the reference's (``jax.checkpoint`` under
+    ``checkpoint_dots_with_no_batch_dims``) at 1e-5; the backward recomputes
+    fewer matrix products than under ``"full"``, which recomputes them all."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.mm += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    batch = _batch(LOSS_CFG["vocab_size"])
+    jcfg, jp, dcfg, tp = _models("granite-3-2b", WEIGHT_MUL, remat=True,
+                                 remat_policy="dots", **LOSS_CFG)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jloss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jp)
+    counts = {}
+    results = {}
+    for policy in ("dots", "full"):
+        cfg = dataclasses.replace(dcfg, remat_policy=policy)
+        with CountMM() as mode:
+            results[policy] = _loss_and_grads(cfg, tree_map(lambda a: a.detach().clone(), tp),
+                                              batch)
+        counts[policy] = mode.mm
+    (loss, grads), (full_loss, full_grads) = results["dots"], results["full"]
+    np.testing.assert_allclose(loss, full_loss, rtol=1e-6, atol=1e-6)
+    _assert_trees_close(_ref_layout(grads), _ref_layout(full_grads), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(loss, float(jl), **GRAD_TOL)
+    _assert_trees_close(_ref_layout(grads), _jax_flat(jg), **GRAD_TOL)
+    assert counts["dots"] < counts["full"], counts
+
+
 def test_loss_refuses_what_is_not_ported():
     cfg = reduced(get_config("granite-3-2b"))
     params = init_params(cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size, seq=8).items()}
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_fn(dataclasses.replace(cfg, remat=True, remat_policy="dots"), params, batch)
     moe = reduced(get_config("llama4-scout-17b-a16e"))
     with pytest.raises(NotImplementedError, match="A7"):
         loss_fn(moe, params, batch)
+
+
+def test_loss_refuses_an_unknown_remat_policy():
+    cfg = dataclasses.replace(reduced(get_config("granite-3-2b")), remat=True,
+                              remat_policy="dot")
+    params = init_params(cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size, seq=8).items()}
+    with pytest.raises(ValueError, match="remat_policy 'dot'"):
+        loss_fn(cfg, params, batch)
 
 
 def test_trainer_five_steps_match_reference(tmp_path):
