@@ -27,8 +27,11 @@ fails:
    all three were checked, and the chunked route is held to the plain
    version of the chunk form as well; flash attention at
    zamba2's head dim 80 too, causal at the serves' prompt lengths 71 and
-   445 and at 1, 15 and 64, at granite's GQA rep 4, at hd 128;
-   ``[check/rmsnorm]`` at d 2048, 2560, 4096, 128 and 100, at 4 and 1780
+   445 and at 1, 15 and 64, at granite's GQA rep 4, at hd 128, and at
+   llama4-scout's prefill, H 40, Hkv 8 (GQA rep 5), hd 128, S 445, 71 and
+   128; ``[check/swiglu]`` at llama4-scout's routed-expert buffers (G, 16,
+   C, 8192) of a decode and of the 445-token prefill;
+   ``[check/rmsnorm]`` at d 2048, 2560, 4096, 5120, 128 and 100, at 4 and 1780
    rows, and on a view one element past a 16-byte boundary).  Then
    ``[check/grad]``: each wrapper under grad mode, whose output must carry
    a ``grad_fn`` and whose input gradients (the plain version's vjp) must
@@ -50,7 +53,10 @@ fails:
    full-width rwkv6-7b forward and a 2-layer, full-width zamba2-2.7b
    forward with the shared block after layer 1 (all f32), each with the
    same weights on the card (kernels) and on the CPU (plain versions): the
-   max logit error, the argmax agreement and the launch counts;
+   max logit error, the argmax agreement and the launch counts; and
+   ``[forward/llama4]``, one full-width llama4-scout-17b-a16e layer (f32,
+   weights drawn on the card and copied to the host, the last position's
+   logits);
 5. train: ``[train/check]``, one ``make_train_step`` of a 2-layer,
    full-width granite-3-2b in f32 (remat on, B 2, S 128 from
    ``SyntheticLMPipeline``) on the card and on the CPU from the same
@@ -98,19 +104,31 @@ fails:
    full-width layer in f32 at B 1, S 256, meshes [8] and [2, 4], TP and SP,
    the fused rings forced on, off and "auto", each rank within 1e-4 of max
    |ref| of the full layer's block, with ms per block; then ``python -m
-   repro_torch.launch.perf --tp-block 2,4 --device cpu``, its rows printed;
+   repro_torch.launch.perf --tp-block 2,4 --device cpu``, its rows printed.
+   Then the expert-parallel MoE block (``models/moe.py`` on the same
+   executors): ``[moe/card]``, one full-width llama4-scout MoE block (bf16,
+   B 4, S 512) in an NCCL world of one rank, bit-identical to the
+   one-device block, timed, with its all-to-all plans and cache counters;
+   ``[moe/gloo8]``, ``python tests/subproc/torch_moe_world.py --suite
+   full``: 8 gloo ranks, the same block in f32 with 2 experts a rank, B 1,
+   S 64 a rank, within 1e-5 of max |ref| of the one-device block;
 8. serve: full granite-3-2b (40 layers, bf16), full rwkv6-7b (32 layers,
-   d 4096, bf16) and full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
-   block every 6th layer, bf16), random weights from a seed, each through
+   d 4096, bf16), full zamba2-2.7b (54 Mamba2 layers, d 2560, the shared
+   block every 6th layer, bf16) and llama4-scout-17b-a16e at full width
+   and 12 of its 48 layers (d 5120, 16 experts of 8192, top-1 and a shared
+   expert; the depth cut so that its weights fit the card), random weights
+   from a seed, each through
    ``BatchedServer`` (batch 4, max_seq 1024, 16 new tokens), 8 requests
    with prompt lengths from ``numpy.random.default_rng(0)`` in [64, 512];
    every request must finish with 16 tokens and each kernel's launch count
    must grow by what the schedule predicts.  Each serve reports its own
    peak memory: the peak since just before its drain, the memory allocated
-   before its ``init_params``, and the peak above that.
+   before its ``init_params``, and the peak above that.  Each serve also
+   prints its decode forward's time against the time to read every stored
+   weight once (the embedding table only where the head is tied to it).
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
-over the 6 training steps of ``[train/granite]`` and the three serves of
+over the 6 training steps of ``[train/granite]`` and the four serves of
 phase 8, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
 phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
@@ -191,6 +209,8 @@ REPLACES = {
 }
 
 DEVICE = "cuda:0"
+#: llama4-scout-17b-a16e's served depth: 12 of its 48 layers fit one card
+LLAMA4_LAYERS = 12
 SERVE = dict(batch_size=4, max_seq=1024, max_new_tokens=16, requests=8,
              prompt_min=64, prompt_max=512)
 CHECK_S = (128, 200, 512)  # prompt lengths of the per-kernel checks
@@ -293,38 +313,52 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def forward_phase(name, cfg, dev, expect_launches):
-    """A 2-layer, full-width f32 forward of ``cfg`` with the same weights on
-    the card (kernels) and on the CPU (plain versions)."""
+def forward_phase(name, cfg, dev, expect_launches, layers=2, head_mode="full",
+                  draw_on_card=False):
+    """A ``layers``-layer, full-width f32 forward of ``cfg`` with the same
+    weights on the card (kernels) and on the CPU (plain versions), drawn on
+    the CPU or, with ``draw_on_card`` (llama4's 17 GB), on the card."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import KERNELS
     from repro_torch.models import forward, init_params
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-    p_cpu = init_params(cfg2, seed=0, device="cpu")
-    p_gpu = to_device(p_cpu, dev)
+    cfg2 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    if draw_on_card:
+        p_gpu = init_params(cfg2, seed=0, device=dev)
+        p_cpu = to_device(p_gpu, "cpu")
+    else:
+        p_cpu = init_params(cfg2, seed=0, device="cpu")
+        p_gpu = to_device(p_cpu, dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg2.vocab_size, (2, 128)))
     for kern in KERNELS.values():
         kern.launches = 0
+    t0 = time.perf_counter()
     with torch.no_grad():
-        got, _ = forward(cfg2, p_gpu, {"tokens": toks.to(dev)})
+        got, _ = forward(cfg2, p_gpu, {"tokens": toks.to(dev)}, head_mode=head_mode)
         torch.cuda.synchronize()
         launches = {n: kern.launches for n, kern in KERNELS.items()}
-        want, _ = forward(cfg2, p_cpu, {"tokens": toks})
+        t1 = time.perf_counter()
+        want, _ = forward(cfg2, p_cpu, {"tokens": toks}, head_mode=head_mode)
+    t2 = time.perf_counter()
     got = got.cpu()
     err = float((got - want).abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"[forward/{name}] 2-layer full-width f32 (2,128): max_abs_logit_err={err:.3e} "
+    n_params = sum(t.numel() for t in leaves(p_cpu))
+    print(f"[forward/{name}] {layers}-layer full-width f32 (2,128) head_mode={head_mode} "
+          f"({n_params / 1e9:.3f} B parameters): max_abs_logit_err={err:.3e} "
           f"(atol {FORWARD_ATOL}) argmax_agreement={agree:.4f} "
-          f"logit_absmax={float(want.abs().max()):.3f} launches={launches}")
+          f"logit_absmax={float(want.abs().max()):.3f} launches={launches} "
+          f"(predicted {expect_launches}); card {t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
     check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
           f"{name} card forward: non-finite logits or wrong shape")
     check(err <= FORWARD_ATOL, f"{name} card forward disagrees with the CPU forward")
     check(agree >= FORWARD_ARGMAX_MIN, f"{name} card forward argmax disagrees with the CPU")
     check(launches == expect_launches,
           f"{name} card forward did not go through the kernels: {launches}")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
 
 
 def train_check_phase(cfg, dev):
@@ -788,6 +822,93 @@ def tp_gloo8_phase():
     print(f"[tp/gloo8] host CPU under gloo: done in {time.perf_counter() - t0:.1f} s")
 
 
+#: [moe/card]: one full-width llama4-scout MoE block, bf16
+MOE_CARD = dict(batch=4, seq=512)
+
+
+def moe_card_phase(lcfg, dev):
+    """[moe/card]: the expert-parallel MoE block (``expert_parallel(cfg,
+    "ep")``) in an NCCL world of one rank on the card, on one full-width
+    llama4-scout MoE block (bf16, random weights from a seed, B 4, S 512):
+    bit-identical to the one-device block, output and aux, SwiGLU launched
+    twice a block (the routed experts and the shared one), both timed with
+    CUDA events in three alternating rounds, with the all-to-all plans
+    issued and the cache counters."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import FactorizedMesh, api, init_world
+    from repro_torch.configs import expert_parallel
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models.moe import moe_block, moe_init
+
+    print("[moe/card] one H100 holds one NCCL rank, so the expert-parallel block runs in "
+          "a world of one rank here (the expert axis has size 1, all 16 experts local, "
+          "each all-to-all a copy); the 8-rank block runs under gloo in [moe/gloo8]",
+          flush=True)
+    B, S = MOE_CARD["batch"], MOE_CARD["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe_init(gen, lcfg, dtype=torch.bfloat16, device=dev)
+    x = torch.randn((B, S, lcfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ref, ref_aux = moe_block(p, lcfg, x)
+    ep = expert_parallel(lcfg, "ep")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("cuda", world_size=1, rank=0, store_path=os.path.join(tmp, "store"))
+        try:
+            check(dist.get_backend() == "nccl", f"[moe/card] backend {dist.get_backend()}")
+            mesh = FactorizedMesh([1], ("ep",))
+            with api.comm_context(mesh, ("ep",)) as ctx, torch.no_grad():
+                torch.cuda.synchronize()
+                for kern in KERNELS.values():
+                    kern.launches = 0
+                out, aux = moe_block(p, ep, x)
+                torch.cuda.synchronize()
+                launches = {n: kern.launches for n, kern in KERNELS.items()}
+                usage = [(f"{q.collective}:{q.mode}", c) for q, c in ctx.plan_usage()]
+                # alternated, so that a drift of the card's clocks shows in both
+                rounds = [(time_ms(lambda: moe_block(p, ep, x), reps=10),
+                           time_ms(lambda: moe_block(p, lcfg, x), reps=10))
+                          for _ in range(3)]
+            st = ctx.cache_stats
+        finally:
+            dist.destroy_process_group()
+    bitwise = torch.equal(out, ref) and all(torch.equal(aux[k], ref_aux[k]) for k in aux)
+    want = {n: 0 for n in KERNELS}
+    want.update(swiglu=2)
+    print(f"[moe/card] {lcfg.name} MoE block d {lcfg.d_model} E {lcfg.moe.num_experts} "
+          f"top-{lcfg.moe.top_k} d_ff {lcfg.moe.d_ff_expert} bf16 B {B} S {S} on "
+          f"{out.device}: ms per block in three alternating rounds, expert-parallel "
+          f"{', '.join(f'{a:.4f}' for a, _ in rounds)}, one-device "
+          f"{', '.join(f'{b:.4f}' for _, b in rounds)}; bit-identical (output and aux) {bitwise}; load_balance "
+          f"{float(aux['load_balance']):.6f} router_z {float(aux['router_z']):.6f}; launches "
+          f"{launches}; plans issued in one block {usage}; cache hits {st.hits} misses "
+          f"{st.misses}", flush=True)
+    check(out.device.type == "cuda" and bool(torch.isfinite(out).all()),
+          "[moe/card] output off the card or non-finite")
+    check(bitwise, "[moe/card] the expert-parallel block differs from the one-device block")
+    check(any(u.startswith("a2a:") for u, _ in usage), "[moe/card] no all-to-all planned")
+    check(launches == want, f"[moe/card] launches {launches} != {want}")
+    del p, x, ref, out
+    torch.cuda.empty_cache()
+
+
+def moe_gloo8_phase():
+    """[moe/gloo8]: the test suite's MoE world script (torch only) at full
+    llama4-scout width on the card machine's host: 8 gloo ranks, the
+    experts over the mesh [8] (2 a rank), f32, B 1, S 64 a rank, each rank
+    within 1e-5 of max |ref| of the one-device block."""
+    t0 = time.perf_counter()
+    lines = run_group([sys.executable, "tests/subproc/torch_moe_world.py", "--suite", "full",
+                       "--reps", "2", "--timeout", "240"], 300, "[moe/gloo8]")
+    rows = [ln for ln in lines if ln.startswith("[moe/gloo8] ")]
+    check(len(rows) == 1 and rows[0].endswith(" ok"), f"[moe/gloo8] rows {rows}")
+    print(f"[moe/gloo8] host CPU under gloo: done in {time.perf_counter() - t0:.1f} s")
+
+
 def train_resume_phase(cfg, dev):
     """[train/resume]: reduced granite-3-2b in bf16 through ``Trainer``: 4
     steps and a save, a fresh trainer restored, 2 more steps, against 6
@@ -838,9 +959,12 @@ def train_resume_phase(cfg, dev):
 
 
 def serve_phase(name, cfg, dev, per_forward):
-    """Serve ``SERVE["requests"]`` requests on full ``cfg`` (bf16, random
-    weights from seed 0); ``per_forward(L, is_prefill)`` gives each kernel's
-    launches per forward.  Returns the kernels' launches over the drain."""
+    """Serve ``SERVE["requests"]`` requests on ``cfg`` (bf16, random weights
+    from seed 0); ``per_forward(L, is_prefill)`` gives each kernel's
+    launches per forward.  Also prints the decode forward's time against
+    its weight-read bound: every stored weight read once at the spec-sheet
+    HBM rate, the embedding table only where the head is tied to it.
+    Returns the kernels' launches over the drain."""
     import numpy as np
     import torch
 
@@ -855,6 +979,9 @@ def serve_phase(name, cfg, dev, per_forward):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    read_bytes = n_bytes
+    if not cfg.tie_embeddings:  # decode gathers B rows of the table, no more
+        read_bytes -= params["embed"].numel() * params["embed"].element_size()
     print(f"[serve/{name}] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} {cfg.dtype}: "
           f"{n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t0:.1f}s")
@@ -902,6 +1029,12 @@ def serve_phase(name, cfg, dev, per_forward):
           f"({prefill_s / prefills * 1e3:.2f} ms per prefill at batch {scfg.batch_size}), "
           f"decode and host bookkeeping {wall - prefill_s:.3f}s "
           f"({(wall - prefill_s) / decodes * 1e3:.2f} ms per decode forward)")
+    bound_ms = read_bytes / HBM_BYTES_S * 1e3
+    per_decode = (wall - prefill_s) / decodes * 1e3
+    what = "weights, each expert's included" if cfg.moe is not None else "weights"
+    print(f"[serve/{name}] decode forward {per_decode:.2f} ms against its weight-read "
+          f"bound {bound_ms:.2f} ms ({read_bytes / 1e9:.2f} GB of {what}, read once at "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s): {per_decode / bound_ms:.2f}x")
     check(rep["requests"] == SERVE["requests"] and len(results_tok) == SERVE["requests"],
           f"{name}: served {rep['requests']} of {SERVE['requests']} requests")
     for rid, toks_out in results_tok.items():
@@ -915,7 +1048,7 @@ def serve_phase(name, cfg, dev, per_forward):
     return launches
 
 
-def check_phase(dev, cfg, rcfg, zcfg):
+def check_phase(dev, cfg, rcfg, zcfg, lcfg):
     """Phase 2: each kernel against its plain version on the card.  Returns
     the largest abs error of each kernel."""
     import torch
@@ -932,6 +1065,7 @@ def check_phase(dev, cfg, rcfg, zcfg):
     B = SERVE["batch_size"]
     randn, wkv6_inputs, ssd_inputs = make_inputs(dev, rcfg, zcfg)
     max_err = {n: 0.0 for n in KERNELS}
+    lH, lHkv, lhd = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
     ssd_routes = set()
 
     def compare(name, got, want, dtype, label, tol=None):
@@ -955,10 +1089,19 @@ def check_phase(dev, cfg, rcfg, zcfg):
                     ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"({rows},{d})")
             g, u = randn(rows, dff, dtype=dtype), randn(rows, dff, dtype=dtype)
             compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"({rows},{dff})")
-        # rmsnorm at the other serving widths (zamba2, rwkv6), qk_norm's hd
+        # llama4-scout's routed experts: the (G, E, C, f) buffer of a decode
+        # (G 4, C 1) and of the 445-token prefill (G 20, C 7)
+        lf, E = lcfg.moe.d_ff_expert, lcfg.moe.num_experts
+        for groups, cap in ((B, 1), (20, 7)):
+            g = randn(groups, E, cap, lf, dtype=dtype)
+            u = randn(groups, E, cap, lf, dtype=dtype)
+            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype,
+                    f"llama4 experts (G {groups}, E {E}, C {cap}, f {lf}) = "
+                    f"({groups * E * cap},{lf}) rows")
+        # rmsnorm at the other serving widths (zamba2, rwkv6, llama4), qk_norm's hd
         # 128 and a d off the 16-byte chunk, at decode and 4 x 445 rows; then
         # an unaligned view (the element-wise path)
-        for width in (zcfg.d_model, rcfg.d_model, 128, 100):
+        for width in (zcfg.d_model, rcfg.d_model, lcfg.d_model, 128, 100):
             for rows in (B, B * 445):
                 x = randn(rows, width, dtype=dtype)
                 sc = randn(width, dtype=dtype, mul=0.1, add=1.0)
@@ -977,6 +1120,9 @@ def check_phase(dev, cfg, rcfg, zcfg):
         cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
         cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
         cases += [(TRAIN["batch"], H, Hkv, TRAIN["seq"], TRAIN["seq"], hd, True)]  # training
+        # llama4-scout's prefill: H 40, Hkv 8 (GQA rep 5), hd 128, at the
+        # serve's prompt lengths and the forward check's S 128
+        cases += [(B, lH, lHkv, s, s, lhd, True) for s in (445, 71, 128)]
         for b, h, hk, s, t, e, causal in cases:
             q = randn(b, h, s, e, dtype=dtype, mul=0.5)
             k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
@@ -1267,7 +1413,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, param_count
     from repro_torch.kernels import KERNELS, build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -1291,9 +1437,10 @@ def main() -> int:
     cfg = get_config("granite-3-2b")
     rcfg = get_config("rwkv6-7b")
     zcfg = get_config("zamba2-2.7b")
+    lcfg = get_config("llama4-scout-17b-a16e")
 
     # ---- 2. check each kernel against its plain version on the card ---------
-    max_err = check_phase(dev, cfg, rcfg, zcfg)
+    max_err = check_phase(dev, cfg, rcfg, zcfg, lcfg)
 
     # ---- 3. time at the largest serving shape (bf16) -------------------------
     results = time_phase(dev, cfg, rcfg, zcfg)
@@ -1309,6 +1456,9 @@ def main() -> int:
     # hybrid_attn_every 2: layer 1 runs the shared block
     forward_phase("zamba2", dataclasses.replace(zcfg, hybrid_attn_every=2), dev,
                   dict(none, rmsnorm=5, swiglu=1, flash_attention=1, mamba2_ssd=2))
+    # one llama4-scout layer: SwiGLU for the routed experts and the shared one
+    forward_phase("llama4", lcfg, dev, dict(none, rmsnorm=3, swiglu=2, flash_attention=1),
+                  layers=1, head_mode="last", draw_on_card=True)
 
     # ---- 5. train: card vs CPU, full granite, the planner, resume -----------
     train_check_phase(cfg, dev)
@@ -1327,6 +1477,10 @@ def main() -> int:
     tp_card_phase(cfg, dev)
     tp_gloo8_phase()
 
+    # ---- 7b. the expert-parallel MoE block: one NCCL rank, 8 gloo ranks ----
+    moe_card_phase(lcfg, dev)
+    moe_gloo8_phase()
+
     # ---- 8. serve full granite-3-2b, full rwkv6-7b, full zamba2-2.7b --------
     granite = serve_phase("granite", cfg, dev, lambda L, prefill: dict(
         none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
@@ -1336,6 +1490,15 @@ def main() -> int:
     zamba2 = serve_phase("zamba2", zcfg, dev, lambda L, prefill: dict(
         none, rmsnorm=L + 2 * (L // every) + 1, swiglu=L // every,
         flash_attention=L // every if prefill else 0, mamba2_ssd=L))
+    print(f"[serve/llama4] depth cut: {LLAMA4_LAYERS} of {lcfg.num_layers} layers at full "
+          f"width (all 48 would hold {param_count(lcfg) * 2 / 1e9:.1f} GB of bf16 weights; "
+          f"{LLAMA4_LAYERS} hold "
+          f"{param_count(dataclasses.replace(lcfg, num_layers=LLAMA4_LAYERS)) * 2 / 1e9:.1f}"
+          f" GB of the card's 80 GB)", flush=True)
+    llama4 = serve_phase(
+        "llama4", dataclasses.replace(lcfg, num_layers=LLAMA4_LAYERS), dev,
+        lambda L, prefill: dict(none, rmsnorm=2 * L + 1, swiglu=2 * L,
+                                flash_attention=L if prefill else 0))
 
     # ---- result --------------------------------------------------------------
     kernels = []
@@ -1345,7 +1508,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
-            "launches": trained[name] + granite[name] + rwkv6[name] + zamba2[name],
+            "launches": (trained[name] + granite[name] + rwkv6[name] + zamba2[name]
+                         + llama4[name]),
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``--arch <id>``.
 
-The same names and configurations as ``repro.configs``; the port serves the
-dense family (granite-3-2b) in this slice, the others are plain data.
+The same names and configurations as ``repro.configs``.  The port runs the
+dense, ssm, hybrid and moe families; vlm and audio (phi-3-vision, hubert)
+are plain data until ROADMAP A13.
 """
 from typing import Dict, List
 
@@ -9,6 +10,8 @@ from .base import (  # noqa: F401
     ModelConfig,
     MoEConfig,
     SSMConfig,
+    active_param_count,
+    expert_parallel,
     param_count,
     reduced,
 )

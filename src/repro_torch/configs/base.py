@@ -1,10 +1,11 @@
 """Model configuration for the port: a framework-free copy of
 ``repro/configs/base.py``.
 
-The config dataclasses, ``reduced`` and ``param_count`` are copied field
-for field, so a config means the same model in both packages.  The
-input-shape cells (``ShapeConfig``, ``input_specs``), the active-parameter
-count and the expert-parallel knob are left out of this slice.
+The config dataclasses, ``reduced``, ``param_count``,
+``active_param_count`` and the expert-parallel knob ``expert_parallel`` are
+copied field for field, so a config means the same model in both packages.
+The input-shape cells (``ShapeConfig``, ``input_specs``) are left out
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ __all__ = [
     "MoEConfig",
     "SSMConfig",
     "ModelConfig",
+    "expert_parallel",
     "reduced",
     "param_count",
+    "active_param_count",
 ]
 
 
@@ -30,8 +33,11 @@ class MoEConfig:
     dense_residual: bool = False  # arctic-style parallel dense FFN branch
     capacity_factor: float = 1.25
     router_z_loss: float = 1e-3
-    # expert parallelism: mesh axis the experts are sharded over (None: every
-    # device holds all experts).  Kept so configs match field for field.
+    # expert parallelism: mesh axis the experts are sharded over.  When set
+    # AND the active comm_context's mesh has this axis, moe_block
+    # dispatches/combines across the mesh through the context-planned
+    # ``repro_torch.comms.api.all_to_all`` (num_experts must divide by the
+    # axis size).  None = every device holds all experts.
     expert_axis: Optional[str] = None
 
 
@@ -114,6 +120,16 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
 
+def expert_parallel(cfg: ModelConfig, axis: str = "data") -> ModelConfig:
+    """The expert-parallel variant of an MoE config: experts sharded over
+    mesh axis ``axis``, dispatch/combine crossing the mesh through
+    ``repro_torch.comms.api.all_to_all`` (no config hand-editing)."""
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name} has no MoE block to expert-parallelize")
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, expert_axis=axis))
+
+
 # --------------------------------------------------------------------------
 # reduced configs for CPU smoke tests
 # --------------------------------------------------------------------------
@@ -179,3 +195,15 @@ def param_count(cfg: ModelConfig) -> int:
     if cfg.hybrid_attn_every:
         total += attn  # one shared attention block
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active-per-token params (MoE: top_k + shared + dense residual only)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    full = param_count(cfg)
+    e = cfg.moe
+    d = cfg.d_model
+    expert = 3 * d * e.d_ff_expert
+    inactive = (e.num_experts - e.top_k) * expert * cfg.num_layers
+    return full - inactive

@@ -7,11 +7,14 @@ The single-server path of ``repro/launch/serve.py``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu --requests 5
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-scout-17b-a16e --reduced --device cpu
 
-It serves the dense (granite-3-2b), ssm (rwkv6-7b) and hybrid (zamba2-2.7b)
-families.  Weights are random (``init_params`` with seed 0, as the
-reference's ``jax.random.key(0)``); prompts are drawn from ``--seed`` with
-the reference's lengths (4 to 19 tokens).  It runs on ``cuda`` unless
+It serves the dense (granite-3-2b), ssm (rwkv6-7b), hybrid (zamba2-2.7b)
+and moe (llama4-scout-17b-a16e, arctic-480b) families; a full-depth MoE
+model does not fit one card.  Weights are random (``init_params`` with
+seed 0, as the reference's ``jax.random.key(0)``); prompts are drawn from
+``--seed`` with the reference's lengths (4 to 19 tokens).  It runs on ``cuda`` unless
 ``--device cpu`` is given, and prints the drain report and how many times
 each hand-written kernel was launched.  The multi-replica cluster mode
 (``--replicas``) is not ported yet (ROADMAP A11); on one device the

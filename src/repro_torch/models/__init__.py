@@ -1,4 +1,4 @@
-"""Dense, rwkv6 and zamba2 decoders of the port (the counterpart of ``repro.models``)."""
+"""Dense, MoE, rwkv6 and zamba2 decoders of the port (the counterpart of ``repro.models``)."""
 from .convert import from_jax_params, shard_tp_layer  # noqa: F401
 from .model import (  # noqa: F401
     apply_head,

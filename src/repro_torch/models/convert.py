@@ -6,9 +6,11 @@ the reference's stacked leading layer axis, and returns the port's nested
 dicts with ``layers`` as a per-layer list.  Names and layouts are the same
 in both packages, so the conversion only splits the layer axis and moves
 the arrays to torch; subtrees outside ``layers`` (zamba2's
-``shared_block``) are moved as they are.  Each leaf keeps the dtype the
-reference gave it: rwkv6's ``w0`` and ``u`` and Mamba2's ``a_log``,
-``d_skip`` and ``dt_bias`` stay f32 in a bf16 model, as in the reference.
+``shared_block``) are moved as they are.  An MoE layer's stacked experts,
+(L, E, d, f) in the reference, become (E, d, f) per layer.  Each leaf
+keeps the dtype the reference gave it: rwkv6's ``w0`` and ``u``, Mamba2's
+``a_log``, ``d_skip`` and ``dt_bias`` and the MoE router stay f32 in a
+bf16 model, as in the reference.
 
 ``shard_tp_layer`` cuts one full layer into this rank's tensor-parallel
 slice, the counterpart of the reference's ``shard_map`` in_specs.

@@ -1,9 +1,10 @@
-"""Model assembly for the dense, ssm and hybrid families: init / forward /
-loss / decode.
+"""Model assembly for the dense, moe, ssm and hybrid families: init /
+forward / loss / decode.
 
-The counterpart of ``repro/models/model.py`` for three families:
+The counterpart of ``repro/models/model.py`` for four families:
 
   dense          : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
+  moe            : [rmsnorm -> attention -> rmsnorm -> MoE block] x L
   ssm (rwkv6)    : [rmsnorm -> time-mix -> rmsnorm -> channel-mix] x L
   hybrid (zamba2): [rmsnorm -> Mamba2] x L, and after every
                    ``hybrid_attn_every``-th layer one shared
@@ -15,8 +16,9 @@ reference stacks the layers and runs them under ``lax.scan``; here
 Python loop over it.  The hybrid's shared block has one set of weights
 (``params["shared_block"]``) and, in the decode state, one K/V slot per
 invocation: layer ``i`` with ``i % every == every - 1`` uses slot
-``i // every``.  Other families (moe, vlm, audio) are later slices of the
-port.
+``i // every``.  The MoE block (``models/moe.py``) returns auxiliary
+losses, summed over the layers as the reference's scan carry sums them.
+The vlm and audio families are a later slice of the port (ROADMAP A13).
 
 Parameters are nested dicts of tensors with the reference's names, dtypes
 and the JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an
@@ -31,8 +33,9 @@ writes the one it is given in place and returns it: each attention's K/V
 at ``cache_pos``, and each layer's recurrent state for every lane, after
 that layer has read it.
 
-Training: ``loss_fn`` runs ``forward(..., head_mode="none")`` and the
-sequence-chunked cross entropy ``_chunked_xent``.  Where ``cfg.remat`` is
+Training: ``loss_fn`` runs the layers with ``head_mode="none"`` and the
+sequence-chunked cross entropy ``_chunked_xent``, plus, for an MoE model,
+the reference's load-balance and router-z terms.  Where ``cfg.remat`` is
 true and grad mode is on, each layer body runs under
 ``torch.utils.checkpoint`` (its activations are recomputed in the
 backward), as the reference's ``_maybe_checkpoint`` wraps its scan body:
@@ -71,6 +74,7 @@ from .attention import (
 from .layers import dense, rmsnorm, rmsnorm_init
 from .mamba2 import mamba2_block, mamba2_init, mamba2_state_init
 from .mlp import ffn_apply_tp, ffn_apply_tp_sp, mlp, mlp_init
+from .moe import moe_block, moe_init
 from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
 
 __all__ = ["init_params", "init_decode_state", "forward", "apply_head", "loss_fn",
@@ -85,10 +89,10 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense, ssm and hybrid families; "
-            f"{cfg.family!r} is not ported yet (ROADMAP queue A)")
+            f"{cfg.name}: the port runs the dense, moe, ssm and hybrid families; "
+            f"{cfg.family!r} waits for A13 (ROADMAP queue A)")
 
 
 # --------------------------------------------------------------------------
@@ -121,6 +125,13 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
         return {
             "ln1": rmsnorm_init(cfg.d_model, **kw),
             "mamba": mamba2_init(gen, cfg, **kw),
+        }
+    if cfg.moe is not None:
+        return {
+            "ln1": rmsnorm_init(cfg.d_model, **kw),
+            "attn": attn_init(gen, cfg, **kw),
+            "ln2": rmsnorm_init(cfg.d_model, **kw),
+            "moe": moe_init(gen, cfg, **kw),
         }
     return _attn_block_init(gen, cfg, **kw)
 
@@ -203,14 +214,24 @@ def _rwkv_layer_body(cfg: ModelConfig, layer: Dict, x: torch.Tensor,
     return x + h, {"tmix_x": last_t, "cmix_x": last_c, "wkv": wkv}
 
 
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    return {"load_balance": torch.zeros((), dtype=torch.float32, device=device),
+            "router_z": torch.zeros((), dtype=torch.float32, device=device)}
+
+
 def _attn_block(cfg: ModelConfig, block: Dict, x: torch.Tensor, positions: torch.Tensor,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]], cache_pos: int) -> torch.Tensor:
-    """rmsnorm -> attention -> rmsnorm -> SwiGLU FFN, each with its residual;
-    ``kv``, when given, is written in place at ``cache_pos``."""
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]], cache_pos: int
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """rmsnorm -> attention -> rmsnorm -> SwiGLU FFN or MoE block, each with
+    its residual; ``kv``, when given, is written in place at ``cache_pos``.
+    Returns (x, the MoE block's aux losses, or None without one)."""
     h, _ = attention(block["attn"], cfg, rmsnorm(block["ln1"], x, cfg.norm_eps),
                      positions=positions, kv_cache=kv, cache_pos=cache_pos)
     x = x + h
-    return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
+    if "moe" in block:
+        h, aux = moe_block(block["moe"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
+        return x + h, aux
+    return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps)), None
 
 
 #: the matrix products without a batch dimension: the operators whose
@@ -260,12 +281,30 @@ def forward(
     loss applies the head itself).  ``batch["tokens"]`` is (B, S) on the
     params' device; ``cache``, when given, is written in place (K/V at
     ``cache_pos``; the recurrent state of every lane) and returned."""
+    out, cache, _ = _forward(cfg, params, batch, cache=cache, cache_pos=cache_pos,
+                             head_mode=head_mode)
+    return out, cache
+
+
+def _forward(
+    cfg: ModelConfig,
+    params: Dict,
+    batch: Dict[str, torch.Tensor],
+    *,
+    cache: Optional[Dict] = None,
+    cache_pos: int = 0,
+    head_mode: str = "full",
+) -> Tuple[torch.Tensor, Optional[Dict], Optional[Dict[str, torch.Tensor]]]:
+    """``forward``, and the MoE aux losses summed over the layers, as the
+    reference's ``forward`` returns them (None for a family without MoE,
+    whose aux only ``loss_fn`` would read, and does not)."""
     _check_family(cfg)
     if head_mode not in ("full", "last", "none"):
         raise ValueError(f"head_mode {head_mode!r}: 'full', 'last' or 'none'")
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     B, S, _ = x.shape
+    aux = _zero_aux(x.device) if cfg.moe is not None else None
 
     if cfg.family == "ssm":
         def body(x, layer, st):
@@ -287,7 +326,7 @@ def forward(
                                      rmsnorm(layer["ln1"], x, cfg.norm_eps), state=st)
             x = x + h
             if i % every == every - 1:  # the shared block, with its own K/V slot
-                x = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
+                x, _ = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
             return x, new_st
 
         body = _maybe_checkpoint(cfg, body)
@@ -309,17 +348,19 @@ def forward(
         body = _maybe_checkpoint(cfg, body)
         for i, layer in enumerate(params["layers"]):
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x = body(x, layer, kv)
+            x, layer_aux = body(x, layer, kv)
+            if layer_aux is not None:
+                aux = {k: a + layer_aux[k] for k, a in aux.items()}
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if head_mode == "none":
-        return x, cache
+        return x, cache, aux
     if head_mode == "last":
         x = x[:, -1:]
     logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
     if head_mode == "last":
         logits = logits[:, 0]
-    return logits, cache
+    return logits, cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -361,14 +402,20 @@ def _chunked_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics): the mean next-token cross entropy of
-    ``batch["labels"]`` given ``batch["tokens"]``, both (B, S)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE loss (load-balance and router-z terms) waits "
-            f"for the MoE port (ROADMAP queue A, A7)")
-    hidden, _ = forward(cfg, params, batch, head_mode="none")
+    ``batch["labels"]`` given ``batch["tokens"]``, both (B, S); for an MoE
+    model plus ``0.01 * load_balance + router_z_loss * router_z``, each
+    the per-layer mean, both reported."""
+    hidden, _, aux = _forward(cfg, params, batch, head_mode="none")
     ce = _chunked_xent(cfg, params, hidden, batch["labels"])
-    return ce, {"ce": ce, "loss": ce}
+    total = ce
+    metrics = {"ce": ce}
+    if cfg.moe is not None:
+        lb = aux["load_balance"] / cfg.num_layers
+        rz = aux["router_z"] / cfg.num_layers
+        total = total + 0.01 * lb + cfg.moe.router_z_loss * rz
+        metrics.update(load_balance=lb, router_z=rz)
+    metrics["loss"] = total
+    return total, metrics
 
 
 def decode_step(
@@ -468,7 +515,7 @@ def transformer_block_ref(
 ) -> torch.Tensor:
     """The same block on the full (unsharded) layer, on one device: the
     block that serving and training run (``_attn_block``, no KV cache)."""
-    return _attn_block(cfg, layer, x, positions, None, 0)
+    return _attn_block(cfg, layer, x, positions, None, 0)[0]
 
 
 def tp_block_specs(layer: Dict, *, sequence_parallel: bool = False,

@@ -125,8 +125,8 @@ def _percentile(vals: List[float], p: float) -> float:
 
 
 class BatchedServer:
-    """Continuous-batching server over the port's dense, rwkv6 and zamba2
-    decoders.
+    """Continuous-batching server over the port's dense, MoE, rwkv6 and
+    zamba2 decoders.
 
     ``params`` must lie on ``device`` (``cuda`` unless the caller passes
     another device; the constructor raises if CUDA is asked for and absent).

@@ -191,9 +191,31 @@ def test_loss_refuses_what_is_not_ported():
     cfg = reduced(get_config("granite-3-2b"))
     params = init_params(cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size, seq=8).items()}
-    moe = reduced(get_config("llama4-scout-17b-a16e"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        loss_fn(moe, params, batch)
+    vlm = reduced(get_config("phi-3-vision-4.2b"))
+    assert vlm.family == "vlm"
+    with pytest.raises(NotImplementedError, match="A13"):
+        loss_fn(vlm, params, batch)
+
+
+def test_moe_loss_under_remat_matches_reference():
+    """Reduced llama4-scout with per-layer remat: the loss, its
+    load-balance and router-z terms and every gradient at 1e-5 (the aux
+    losses summed over the layers under checkpointing)."""
+    jcfg, jp, cfg, tp = _models("llama4-scout-17b-a16e", WEIGHT_MUL, remat=True, **LOSS_CFG)
+    batch = _batch(cfg.vocab_size)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: jloss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jp)
+    for p in tree_leaves(tp):
+        p.requires_grad_(True)
+    loss, metrics = loss_fn(cfg, tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = iter(torch.autograd.grad(loss, tree_leaves(tp)))
+    got = tree_map(lambda _: next(grads), tp)
+    assert set(metrics) == set(jm) == {"ce", "load_balance", "router_z", "loss"}
+    for k in jm:
+        np.testing.assert_allclose(float(metrics[k].detach()), float(jm[k]), err_msg=k,
+                                   **GRAD_TOL)
+    _assert_trees_close(_ref_layout(got), _jax_flat(jg), **GRAD_TOL)
 
 
 def test_loss_refuses_an_unknown_remat_policy():
