@@ -88,7 +88,18 @@ fails:
    64 KiB, 1 MiB and 4 MiB, every op in every mode (the latency exchange
    too) bit-identical to the flat one-shot collective, with its time.
    ``[comms/perf]``, ``python -m repro_torch.launch.perf --collectives 2,4
-   --sizes-kb 64,4096 --device cpu``, its rows printed.  Each subprocess
+   --sizes-kb 64,4096 --device cpu``, its rows printed.  Then the fault
+   layer: ``[fault/card]``, one NCCL rank, ``api.all_gather`` and
+   ``api.all_reduce`` of a 4 MiB f32 CUDA tensor with ``PlanPolicy(verify=
+   True)`` and without, bit-identical, no fallback, both timed, and
+   ``execute_plan_verified`` on a per-hop plan (a world of one rank has no
+   hop to fault, which the phase prints); ``[fault/gloo8]``, ``python
+   tests/subproc/torch_fault_world.py --suite full``: 8 gloo ranks, mesh
+   [2, 4], every check of the chaos harness (injected drops and
+   corruptions detected, retried or fallen back to the one-shot, a fault
+   on one ring position, the verify policy's fallback count,
+   ``report_fault``, the dead axis, a seeded 16-step fault trace), then the
+   verified-to-plain time ratio at a 1 MiB shard.  Each subprocess
    runs in a process group of its own, killed whole on a timeout;
 7. tp: the explicit tensor-parallel transformer block
    (``models.model.transformer_block_tp`` on the executors of phase 6).
@@ -125,11 +136,24 @@ fails:
    peak memory: the peak since just before its drain, the memory allocated
    before its ``init_params``, and the peak above that.  Each serve also
    prints its decode forward's time against the time to read every stored
-   weight once (the embedding table only where the head is tied to it).
+   weight once (the embedding table only where the head is tied to it);
+9. cluster: ``[cluster/card]``, ``launch.serve``'s multi-replica path on
+   the card: two full-width granite-3-2b replicas (bf16; r0 40 layers,
+   r1-deep 80), each calibrated by ``measure_replica_times``, a seeded
+   Poisson trace of 8 requests (8-token prompts, 16 new tokens, batch 4)
+   at a quarter of r1-deep's service rate, replayed under round-robin and
+   greedy routing through the event-driven simulator and the live
+   ``ClusterServer``: every request finished with 16 tokens and every
+   timestamp, ``routed`` summing to 8, the simulator's event log repeated
+   from the same seed, B1-B3 launched (flash attention once a layer per
+   prefill); it prints simulated and measured p50 and p99, whether their
+   greedy < round-robin orderings match (not gated), its time and peak
+   memory.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
-over the 6 training steps of ``[train/granite]`` and the four serves of
-phase 8, each counted from 0 just before it; ``max_abs_err`` the largest of phase 2's checks; the times from
+over the 6 training steps of ``[train/granite]``, the four serves of
+phase 8 and the two cluster replays of phase 9, each counted from 0 just
+before it; ``max_abs_err`` the largest of phase 2's checks; the times from
 phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
@@ -704,6 +728,90 @@ def comms_perf_phase():
           f"[comms/perf] {len(rows)} collective rows, want 6")
 
 
+def fault_card_phase(dev):
+    """[fault/card]: the verified executor (``PlanPolicy(verify=True)``) in
+    an NCCL world of one rank on the card: ``api.all_gather`` and
+    ``api.all_reduce`` of a 4 MiB f32 CUDA tensor (integers in [-4, 4], so
+    every checksum is exact) with verification and without, bit-identical,
+    no fallback, both timed with CUDA events; and ``execute_plan_verified``
+    on a per-hop plan, every attempt clean.  A world of one rank has no
+    ppermute hop, so an active injection finds nothing to hit (its
+    ``applied`` stays 0); the phase says so in a line of its own."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import (FactorizedMesh, FaultInjection, api,
+                                   execute_plan_verified, fault_injection, init_world)
+    from repro_torch.configs.optree_paper import FIG4_MESSAGE_BYTES
+
+    print("[fault/card] a world of one rank (one H100 holds one NCCL rank) has size-1 "
+          "axes and no ppermute hop, so no fault can be injected here: the injected "
+          "drops and corruptions run on 8 gloo ranks in [fault/gloo8]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_dev = init_world("cuda", world_size=1, rank=0,
+                              store_path=os.path.join(tmp, "store"))
+        try:
+            names = ("a", "b")
+            mesh = FactorizedMesh([1, 1], names)
+            g = torch.Generator(device=rank_dev).manual_seed(0)
+            x = torch.randint(-4, 5, (FIG4_MESSAGE_BYTES // 4,), generator=g,
+                              device=rank_dev).float()
+            plain = api.CommContext(mesh, names)
+            ver = api.CommContext(mesh, names, policy=api.PlanPolicy(verify=True))
+            for coll, op in (("ag", api.all_gather), ("ar", api.all_reduce)):
+                want = op(x, axis=0, ctx=plain)
+                with fault_injection(FaultInjection(axis="b", mode="corrupt",
+                                                    times=999)) as spec:
+                    got = op(x, axis=0, ctx=ver)
+                check(got.device.type == "cuda", f"[fault/card] {coll} on {got.device}")
+                check(got.shape == want.shape and torch.equal(
+                    got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)),
+                    f"[fault/card] {coll}: verified differs from plain")
+                check(spec.applied == 0, f"[fault/card] {coll}: a hop in a world of one")
+                t_plain = time_ms(lambda: op(x, axis=0, ctx=plain))
+                t_ver = time_ms(lambda: op(x, axis=0, ctx=ver))
+                plan = ver.plans()[-1]
+                print(f"[fault/card] {coll} {FIG4_MESSAGE_BYTES} B plan {plan.mode} "
+                      f"x{plan.num_chunks}: plain {t_plain:.4f} ms, verified {t_ver:.4f} ms "
+                      f"({t_ver / t_plain:.2f}x), on {got.device}, bit-identical", flush=True)
+            check(ver.cache_stats.fallbacks == 0,
+                  f"[fault/card] {ver.cache_stats.fallbacks} fallbacks in a healthy world")
+            plan = plain.plan("ag", float(x.numel() * 4), shape=tuple(x.shape)).with_mode("perhop")
+            out, diag = execute_plan_verified(x, plan, mesh=mesh, retries=1)
+            check(torch.equal(out, x) and bool(diag["attempt_ok"].all())
+                  and not bool(diag["used_fallback"]),
+                  f"[fault/card] execute_plan_verified: {diag}")
+            print(f"[fault/card] execute_plan_verified perhop ag: attempt_ok "
+                  f"{diag['attempt_ok'].tolist()}, stage_ok {diag['stage_ok'].tolist()}, "
+                  f"fallbacks 0")
+        finally:
+            dist.destroy_process_group()
+
+
+def fault_gloo8_phase():
+    """[fault/gloo8]: the test suite's fault world script (torch only) on
+    the card machine's host: 8 gloo ranks, mesh [2, 4], every check of the
+    chaos harness (drops and corruptions detected, retried or fallen back,
+    a fault on one ring position, the verify policy's counting,
+    ``report_fault``, the dead axis, the seeded trace loop), then verified
+    against plain ``all_gather`` and ``all_reduce`` at a 1 MiB shard."""
+    t0 = time.perf_counter()
+    lines = run_group([sys.executable, "tests/subproc/torch_fault_world.py", "--suite",
+                       "full", "--time-kb", "1024", "--reps", "3", "--timeout", "200"],
+                      260, "[fault/gloo8]")
+    (done,) = [ln for ln in lines if " checks passed " in ln]
+    passed, total = done.split()[1].split("/")
+    check(passed == total, f"[fault/gloo8] {done}")
+    rows = [ln for ln in lines if ln.startswith("[fault/gloo8] mesh")]
+    check(len(rows) == 2 and all(ln.endswith("bit-identical") for ln in rows),
+          f"[fault/gloo8] {len(rows)} timing rows, want 2")
+    print(f"[fault/gloo8] host CPU under gloo: {passed}/{total} checks, done in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 #: [tp/card]: the explicit TP block against the one-device block, both
 #: bf16 on the card: tests/test_kernels.py:23's bf16 tolerance; against the
 #: CPU's f32 block, the largest error relative to max |CPU block|
@@ -1046,6 +1154,113 @@ def serve_phase(name, cfg, dev, per_forward):
     del server, params
     torch.cuda.empty_cache()
     return launches
+
+
+#: [cluster/card]: two full-width granite-3-2b replicas, r1-deep twice as
+#: deep; batch 4, 8 requests of 8-token prompts, 16 new tokens each
+CLUSTER = dict(hetero_factor=2, batch_size=4, max_seq=128, new_tokens=16, requests=8)
+#: the Poisson rate is this share of r1-deep's measured single-request
+#: service rate: the underloaded regime of tests/test_cluster.py
+CLUSTER_LOAD = 0.25
+
+
+def cluster_card_phase(cfg, dev):
+    """[cluster/card]: ``launch.serve``'s cluster path (``build_cluster``,
+    ``cluster_trace``, ``run_cluster``) on the card: replicas r0 (40
+    layers) and r1-deep (80 layers), bf16, random weights from seeds 0 and
+    1, calibrated by ``measure_replica_times``; a Poisson trace at
+    ``CLUSTER_LOAD`` of r1-deep's service rate, replayed under round-robin
+    and greedy in the electrical world, through the simulator and the live
+    ``ClusterServer``.  Gates: every request finishes with 16 tokens and
+    full timestamps, ``routed`` sums to 8, the simulator's event log repeats
+    from the same seed, and B1-B3 launch in the replay (flash attention
+    exactly once a layer per prefill).  The greedy < round-robin p99
+    ordering, measured against simulated, is printed, not gated.  Returns
+    the kernels' launches over both replays."""
+    import torch
+
+    from repro_torch.cluster import ClusterSim, Request, make_policy
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    args = serve.build_parser().parse_args([
+        "--arch", "granite-3-2b", "--device", str(dev), "--replicas", "2", "--hetero",
+        "--hetero-factor", str(CLUSTER["hetero_factor"]),
+        "--batch-size", str(CLUSTER["batch_size"]), "--max-seq", str(CLUSTER["max_seq"]),
+        "--new-tokens", str(CLUSTER["new_tokens"]), "--requests", str(CLUSTER["requests"]),
+        "--world", "electrical"])
+    servers, specs = serve.build_cluster(args, cfg)
+    layers = {spec.name: srv.cfg.num_layers for srv, spec in zip(servers, specs)}
+    gb = {spec.name: sum(t.numel() * t.element_size() for t in leaves(srv.params)) / 1e9
+          for srv, spec in zip(servers, specs)}
+    print(f"[cluster/card] replicas {layers} layers, {cfg.dtype} weights "
+          f"{ {k: round(v, 2) for k, v in gb.items()} } GB, built and calibrated in "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    probe = Request(rid=0, arrival_s=0.0, prompt_tokens=8, new_tokens=CLUSTER["new_tokens"])
+    rate = CLUSTER_LOAD / specs[1].request_service_s(probe)
+    args.trace = f"poisson:{rate!r}"
+    trace = serve.cluster_trace(args)
+    print(f"[cluster/card] trace {args.trace} ({CLUSTER_LOAD} / r1-deep's request service "
+          f"{specs[1].request_service_s(probe) * 1e3:.2f} ms): arrivals "
+          f"{[round(r.arrival_s, 3) for r in trace]} s", flush=True)
+    p99, total = {}, {n: 0 for n in KERNELS}
+    for policy in ("round-robin", "greedy"):
+        args.policy = policy
+        for kern in KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        res = serve.run_cluster(args, servers, specs, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: kern.launches for n, kern in KERNELS.items()}
+        sim, meas = res["simulated"], res["measured"]
+        check(len(meas.records) == len(trace) and len(res["results"]) == len(trace),
+              f"[cluster/card] {policy}: {len(meas.records)} of {len(trace)} requests")
+        for rec in meas.records:
+            check(rec.new_tokens == CLUSTER["new_tokens"] and None not in (
+                rec.enqueue_s, rec.prefill_start_s, rec.prefill_done_s,
+                rec.decode_start_s, rec.finish_s),
+                f"[cluster/card] {policy}: request {rec.rid} {rec.to_json()}")
+        check(all(len(v) == CLUSTER["new_tokens"] for v in res["results"].values()),
+              f"[cluster/card] {policy}: a stream is short")
+        check(sum(meas.routed.values()) == len(trace) == sum(sim.routed.values()),
+              f"[cluster/card] {policy}: routed {meas.routed}, simulated {sim.routed}")
+        again = ClusterSim(specs, make_policy(policy), world=args.world)
+        again.run(trace)
+        check(again.event_log == res["event_log"],
+              f"[cluster/card] {policy}: the simulator's event log differs on a rerun")
+        # run_cluster counts from 0 after its warm requests: one prefill a
+        # request of the replay, each launching flash once a layer
+        prefill_layers = sum(layers[r.replica] for r in meas.records)
+        check(launches["flash_attention"] == prefill_layers and launches["rmsnorm"] > 0
+              and launches["swiglu"] > 0,
+              f"[cluster/card] {policy}: launches {launches}, flash predicted {prefill_layers}")
+        forwards = launches["rmsnorm"] - 2 * launches["swiglu"]  # 2L+1 vs L a forward
+        for n in KERNELS:
+            total[n] += launches[n]
+        p99[policy] = (sim.latency_p99_s(), meas.latency_p99_s())
+        print(f"[cluster/card] {policy}: simulated p50 {sim.latency_p50_s() * 1e3:.2f} ms "
+              f"p99 {sim.latency_p99_s() * 1e3:.2f} ms routed {sim.routed}; measured p50 "
+              f"{meas.latency_p50_s() * 1e3:.2f} ms p99 {meas.latency_p99_s() * 1e3:.2f} ms "
+              f"routed {meas.routed}, makespan {meas.makespan_s:.3f} s, "
+              f"{meas.throughput_tok_s():.2f} tok/s, replay {wall:.1f}s; launches {launches} "
+              f"({forwards} forwards); event log of "
+              f"{len(res['event_log'])} events repeats", flush=True)
+    sim_order = p99["greedy"][0] < p99["round-robin"][0]
+    meas_order = p99["greedy"][1] < p99["round-robin"][1]
+    print(f"[cluster/card] greedy < round-robin on p99: simulated {sim_order}, measured "
+          f"{meas_order}: {'match' if sim_order == meas_order else 'no match'} "
+          f"(wall clock, not gated)")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[cluster/card] phase {time.perf_counter() - t_phase:.1f}s, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB allocated before it)")
+    del servers, specs
+    torch.cuda.empty_cache()
+    return total
 
 
 def check_phase(dev, cfg, rcfg, zcfg, lcfg):
@@ -1471,6 +1686,8 @@ def main() -> int:
     comms_card_phase(dev)
     comms_gloo8_phase()
     comms_perf_phase()
+    fault_card_phase(dev)
+    fault_gloo8_phase()
     torch.cuda.empty_cache()
 
     # ---- 7. the tensor-parallel block: one NCCL rank, 8 gloo ranks ---------
@@ -1500,6 +1717,9 @@ def main() -> int:
         lambda L, prefill: dict(none, rmsnorm=2 * L + 1, swiglu=2 * L,
                                 flash_attention=L if prefill else 0))
 
+    # ---- 9. two granite-3-2b replicas behind a routing policy ---------------
+    cluster = cluster_card_phase(cfg, dev)
+
     # ---- result --------------------------------------------------------------
     kernels = []
     for name in KERNELS:
@@ -1509,7 +1729,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
             "launches": (trained[name] + granite[name] + rwkv6[name] + zamba2[name]
-                         + llama4[name]),
+                         + llama4[name] + cluster[name]),
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],

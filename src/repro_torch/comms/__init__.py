@@ -12,8 +12,10 @@ CollectivePlan IR); everything else is internals or deprecation shims.
 The fused collective-matmul ops (``allgather_matmul``,
 ``matmul_reduce_scatter``, whose rings live in
 ``collective_matmul.py``) and ``sharded_decode_attention`` are
-ROADMAP A6; the verified executor with its fault injection (A10) comes
-later.
+ROADMAP A6.  The fault layer (A10) is ``execute_plan_verified``
+(conservation checksums per stage, bounded retry, the one-shot fallback;
+``PlanPolicy(verify=True)`` routes every op through it) and its chaos
+hook, ``fault_injection(FaultInjection(...))``.
 """
 from .mesh_utils import FactorizedMesh, init_world, make_factorized_mesh  # noqa: F401
 from .staged_allgather import (  # noqa: F401
@@ -31,6 +33,8 @@ from .staged_collectives import (  # noqa: F401
     tp_all_reduce,
 )
 from .ring_executor import (  # noqa: F401
+    FaultInjection,
+    fault_injection,
     hybrid_all_gather,
     hybrid_all_reduce,
     hybrid_all_to_all,
@@ -43,7 +47,7 @@ from .ring_executor import (  # noqa: F401
     ring_all_to_all_stage,
     ring_reduce_scatter_stage,
 )
-from .plan_executor import execute_plan  # noqa: F401
+from .plan_executor import execute_plan, execute_plan_verified  # noqa: F401
 from . import api  # noqa: F401
 from .api import (  # noqa: F401
     CommContext,

@@ -22,8 +22,11 @@ invalidated) makes the re-plan observable.
 Every op takes this rank's LOCAL array: the reference's "inside shard_map"
 contract, one process per rank.  The reference's ops also accept a global
 array outside ``shard_map`` and wrap themselves in it; the port has no
-global-array path until a DTensor front end (ROADMAP A12).  The verified
-executor (``PlanPolicy(verify=True)``) is ROADMAP A10.
+global-array path until a DTensor front end (ROADMAP A12).  Under
+``PlanPolicy(verify=True)`` every op runs through the verified executor
+(``plan_executor.execute_plan_verified``: checksums, bounded retry, the
+one-shot fallback), and a fallback on any rank of the group is counted
+once in ``cache_stats.fallbacks`` on every rank.
 
 The fused collective-matmul ops (``allgather_matmul``,
 ``matmul_reduce_scatter``) decide per call, through
@@ -116,11 +119,11 @@ class PlanPolicy:
                      with (None = TERARACK defaults); lower wavelength
                      counts sharpen order differences (step counts tie at
                      large w on small meshes).
-    ``verify``     — the reference runs ops through its verified executor
-                     (per-stage checksums, bounded retry, one-shot
-                     degrade).  That executor is the fault layer, ROADMAP
-                     A10, not yet ported: ``verify=True`` raises
-                     ``NotImplementedError`` instead of running unverified.
+    ``verify``     — run ops through ``execute_plan_verified``: per-stage
+                     conservation checksums, up to ``verify_retries``
+                     bounded retries of the staged path, then a graceful
+                     degrade to the bit-identical one-shot collective
+                     (counted in ``CacheStats.fallbacks``).
     ``verify_retries`` — retry budget for the verified executor (>= 0).
     ``regime``     — the latency/bandwidth plan family:
                        * ``"auto"`` (default) — per payload size, price the
@@ -166,11 +169,6 @@ class PlanPolicy:
     reconfig: str = "auto"
 
     def __post_init__(self):
-        if self.verify:
-            raise NotImplementedError(
-                "PlanPolicy(verify=True) needs the verified executor "
-                "(execute_plan_verified), which is ROADMAP A10 and not "
-                "ported yet")
         if self.mode is not None and self.mode not in (
                 "oneshot", "chunked", "perhop", "hybrid"):
             raise ValueError(f"policy mode must be oneshot|chunked|perhop|"
@@ -951,10 +949,25 @@ def _require_mesh(ctx: CommContext, op: str):
 
 
 def _run_local(ctx, y, plan, axis):
-    """Execute a plan on this rank's array over the context's mesh."""
-    from .plan_executor import execute_plan  # lazy: cycle
+    """Execute a plan on this rank's array over the context's mesh,
+    verified when the policy says so.  A verified run's fallback flag is
+    summed over the plan's group, so every rank counts the same executor
+    fallback (the reference's ``psum`` of ``used_fallback``) and their
+    ``CacheStats`` agree."""
+    from .plan_executor import (  # lazy: cycle
+        execute_plan,
+        execute_plan_verified,
+        plan_axis_names,
+    )
 
-    return execute_plan(y, plan, axis=axis, mesh=ctx.mesh)
+    if not ctx.policy.verify:
+        return execute_plan(y, plan, axis=axis, mesh=ctx.mesh)
+    out, diag = execute_plan_verified(y, plan, axis=axis, mesh=ctx.mesh,
+                                      retries=ctx.policy.verify_retries)
+    fell = diag["used_fallback"].to(torch.int32).reshape(1)
+    if int(ctx.mesh.psum(fell, plan_axis_names(plan))) > 0:
+        ctx.cache_stats.fallbacks += 1
+    return out
 
 
 #: the collective whose result is the cotangent of each one's input (the

@@ -23,7 +23,11 @@ then each round keeps the half matching this rank's bit and sends the other
 half to the partner, adding what arrives.
 
 ``stage_probe(before, after, name)`` fires once per AXIS GROUP (not per
-round) with the group's entry/exit buffers.
+round) with the group's entry/exit buffers: group-level conservation over
+the full named axis, the same checksum granularity
+``plan_executor.execute_plan_verified`` uses on the ring paths.  Chaos
+injection (``ring_executor.fault_injection``) applies per round, with hops
+numbered 1..k within each group.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from ..core.plan_ir import CollectivePlan, PlanStage
 from .mesh_utils import FactorizedMesh, resolve_mesh
+from .ring_executor import _maybe_inject
 
 __all__ = [
     "exchange_all_gather",
@@ -112,7 +117,8 @@ def _gather_rounds(
         for t in range(k):
             sig = k - 1 - t  # MSB first
             partner = idx ^ (1 << sig)
-            recv = mesh.ppermute(buf, name, partner, partner)
+            recv = _maybe_inject(mesh.ppermute(buf, name, partner, partner),
+                                 name, t + 1, mesh)
             # new digit stacks LEADING: slot 0 = the bit-0 half
             pair = (buf, recv) if (idx >> sig) & 1 == 0 else (recv, buf)
             buf = torch.stack(pair)
@@ -140,7 +146,8 @@ def _scatter_rounds(
             bit = (idx >> sig) & 1
             mine, other = buf[bit], buf[1 - bit]
             partner = idx ^ (1 << sig)
-            recv = mesh.ppermute(other, name, partner, partner)
+            recv = _maybe_inject(mesh.ppermute(other, name, partner, partner),
+                                 name, t + 1, mesh)
             buf = mine + recv
         if probe is not None:
             probe(before, buf, name)

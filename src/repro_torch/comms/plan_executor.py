@@ -22,12 +22,13 @@ bit-identical to the one-shot collectives (AG and a2a exactly; RS and AR
 for exactly representable sums): ``tests/test_torch_comms_exec.py`` holds
 them to the reference's executors and to numpy.
 
-The verified executor (``execute_plan_verified``: per-stage checksums,
-bounded retry, one-shot fallback) is the fault layer, ROADMAP A10.
+``execute_plan_verified`` is the fault layer on top: per-stage and
+whole-collective conservation checksums, bounded retry, and the one-shot
+fallback, selected per rank.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +58,7 @@ from .staged_collectives import (
 
 __all__ = [
     "execute_plan",
+    "execute_plan_verified",
     "oneshot_reference",
     "plan_axis_names",
 ]
@@ -207,3 +209,105 @@ def oneshot_reference(y: torch.Tensor, plan: CollectivePlan, *,
     if coll == "a2a":
         return mesh.all_to_all(y, names, axis)
     raise ValueError(f"unknown collective {coll!r}")
+
+
+# --------------------------------------------------------------------------
+# verified execution: per-stage checksums, bounded retry, one-shot fallback
+# --------------------------------------------------------------------------
+
+def _close(a: torch.Tensor, b: torch.Tensor, tol: float) -> torch.Tensor:
+    if tol == 0.0:
+        return a == b
+    scale = torch.clamp(torch.maximum(a.abs(), b.abs()), min=1.0)
+    return (a - b).abs() <= tol * scale
+
+
+def _group_sum(t: torch.Tensor, names, mesh: FactorizedMesh) -> torch.Tensor:
+    """``lax.psum(jnp.sum(t), names)``: this rank's total summed over the
+    group of ``names``, as a 0-d tensor."""
+    return mesh.psum(t.sum().reshape(1), names).reshape(())
+
+
+def _conservation_ok(y, out, plan, names, tol, mesh) -> torch.Tensor:
+    """Whole-collective conservation checksum.  All four collectives
+    preserve the group's total mass; AG and AR additionally deliver the
+    full total to EVERY rank, so their check is per rank (a rank whose
+    gather lost a block fails locally)."""
+    tin = _group_sum(y, names, mesh)
+    if plan.collective in ("ag", "ar"):
+        return _close(out.sum(), tin, tol)
+    return _close(_group_sum(out, names, mesh), tin, tol)
+
+
+def execute_plan_verified(
+    y: torch.Tensor,
+    plan: CollectivePlan,
+    *,
+    axis: int = 0,
+    retries: int = 1,
+    tol: float = 0.0,
+    mesh: Optional[FactorizedMesh] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Checksummed execution with bounded retry and graceful degradation.
+
+    Runs ``plan`` ``retries + 1`` times; each attempt is verified by
+    per-stage conservation checksums (via the ``stage_probe`` hook on the
+    per-hop paths: an AG stage must deliver the stage group's full mass to
+    every member, RS/A2A stages must preserve the group total) plus the
+    whole-collective checksum.  The result is the FIRST attempt whose every
+    checksum passes on this rank; if none passes, the bit-identical
+    one-shot collective (:func:`oneshot_reference`) is selected instead:
+    degraded throughput, never corrupted data.
+
+    Every rank runs every attempt and the one-shot, then selects with
+    ``torch.where``, as the reference's traced program does on every
+    device.  The verdicts are per rank (an AG/AR check, or a fault on one
+    ring position, can fail some ranks and not others), so a rank that
+    stopped at its first clean attempt would issue fewer collectives than
+    its peers and hang the group.
+
+    ``tol`` is the relative checksum tolerance; the default ``0.0`` demands
+    exact equality, which holds for exactly representable sums (the chaos
+    harness uses integer-valued payloads).  Float rounding with ``tol=0``
+    can only cause a spurious *fallback*, never a wrong result.
+
+    Returns ``(out, diag)``; ``diag["attempt_ok"]`` is this rank's
+    per-attempt verdict vector, ``diag["used_fallback"]`` the 0-d bool that
+    no attempt survived here, and ``diag["stage_ok"]`` (per-hop paths only)
+    the (attempt, stage) checksum matrix.  They are tensors on ``y``'s
+    device: reading them is the caller's host synchronisation.
+    """
+    if retries < 0:
+        raise ValueError(f"retries must be >= 0, got {retries}")
+    mesh = resolve_mesh(mesh)
+    names = plan_axis_names(plan)
+    attempts, attempt_oks, stage_ok_rows = [], [], []
+    for _ in range(retries + 1):
+        stage_oks: list = []
+
+        def probe(before, after, name, kind, _oks=stage_oks):
+            tin = _group_sum(before, name, mesh)
+            if kind == "ag":
+                ok = _close(after.sum(), tin, tol)
+            else:  # rs / a2a: stage-group total conservation
+                ok = _close(_group_sum(after, name, mesh), tin, tol)
+            _oks.append(ok)
+
+        out = execute_plan(y, plan, axis=axis, stage_probe=probe, mesh=mesh)
+        ok = _conservation_ok(y, out, plan, names, tol, mesh)
+        for s_ok in stage_oks:
+            ok = torch.logical_and(ok, s_ok)
+        attempts.append(out)
+        attempt_oks.append(ok)
+        stage_ok_rows.append(stage_oks)
+    out = oneshot_reference(y, plan, axis=axis, mesh=mesh)
+    for a_out, a_ok in reversed(list(zip(attempts, attempt_oks))):
+        out = torch.where(a_ok, a_out, out)
+    attempt_ok = torch.stack(attempt_oks)
+    diag: Dict[str, torch.Tensor] = {
+        "attempt_ok": attempt_ok,
+        "used_fallback": torch.logical_not(attempt_ok.any()),
+    }
+    if stage_ok_rows[0]:
+        diag["stage_ok"] = torch.stack([torch.stack(row) for row in stage_ok_rows])
+    return out, diag

@@ -20,12 +20,16 @@ pick the executor per stage: ``"ring"`` (per-hop ppermute) where the overlap
 model wins, ``"oneshot"`` (the blocking collective) where a stage is too
 small to pipeline (see ``core.planner.choose_hop_schedule``).
 
-The reference's chaos hooks (``FaultInjection``, ``fault_injection``) belong
-to the fault layer, ROADMAP A10, and are not here yet.
+``fault_injection`` is the chaos hook of the fault layer: a
+:class:`FaultInjection` replaces a chosen hop's *received* block (zeroed or
++1 everywhere) before it is stored or forwarded, so the verified executor
+(``plan_executor.execute_plan_verified``) has something to catch.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +49,8 @@ from .staged_collectives import (
 )
 
 __all__ = [
+    "FaultInjection",
+    "fault_injection",
     "ring_all_gather_stage",
     "ring_reduce_scatter_stage",
     "ring_all_to_all_stage",
@@ -57,6 +63,68 @@ __all__ = [
     "hybrid_all_reduce",
     "hybrid_all_to_all",
 ]
+
+
+# --------------------------------------------------------------------------
+# fault injection (chaos harness hook)
+# --------------------------------------------------------------------------
+
+@dataclass
+class FaultInjection:
+    """Corrupt a chosen ppermute hop of a ring stage, for chaos tests.
+
+    ``axis`` is the mesh axis whose ring stage to hit, ``hop`` the 1-based
+    hop index within the stage, ``mode`` either ``"drop"`` (the received
+    block arrives zeroed: a lost lightpath) or ``"corrupt"`` (+1 to every
+    element: a payload bit flip).  ``times`` bounds how many matching hop
+    executions are corrupted: the verified executor's bounded retry runs
+    the stage once per attempt, so ``times=1`` means only the first attempt
+    sees the fault (the retry genuinely recovers) while a large ``times``
+    keeps every attempt faulty (forcing the one-shot fallback).  ``device``
+    optionally restricts the fault to the rank at that coordinate on
+    ``axis``.
+
+    ``applied`` counts the matching hop executions on this rank, the target
+    or not: every rank runs the same hops, so every rank's count equals the
+    reference's, where one trace serves all devices.
+    """
+
+    axis: str
+    hop: int = 1
+    mode: str = "drop"
+    times: int = 1
+    device: Optional[int] = None
+    applied: int = 0  # mutable: matching hop executions consumed so far
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("drop", "corrupt"):
+            raise ValueError(f"mode must be drop|corrupt, got {self.mode!r}")
+
+
+_INJECTIONS: List[FaultInjection] = []
+
+
+@contextmanager
+def fault_injection(spec: FaultInjection):
+    """Activate ``spec`` for every ring stage run inside the block."""
+    _INJECTIONS.append(spec)
+    try:
+        yield spec
+    finally:
+        _INJECTIONS.remove(spec)
+
+
+def _maybe_inject(recv: torch.Tensor, name: str, hop: int,
+                  mesh: FactorizedMesh) -> torch.Tensor:
+    """Pass a just-received ppermute block through the active injections."""
+    for spec in _INJECTIONS:
+        if spec.axis != name or spec.hop != hop or spec.applied >= spec.times:
+            continue
+        spec.applied += 1
+        if spec.device is not None and mesh.axis_index(name) != spec.device:
+            continue
+        recv = torch.zeros_like(recv) if spec.mode == "drop" else recv + 1
+    return recv
 
 
 def _origin_order(pieces, idx: int) -> torch.Tensor:
@@ -84,8 +152,9 @@ def ring_all_gather_stage(x: torch.Tensor, name: str, *,
     idx = mesh.axis_index(name)
     nxt, prv = (idx + 1) % m, (idx - 1) % m
     pieces = [x]  # arrival order: origin idx, idx-1, ..., idx-(m-1)
-    for _ in range(1, m):
-        pieces.append(mesh.ppermute(pieces[-1], name, nxt, prv))
+    for t in range(1, m):
+        pieces.append(_maybe_inject(mesh.ppermute(pieces[-1], name, nxt, prv),
+                                    name, t, mesh))
     return _origin_order(pieces, idx)
 
 
@@ -121,7 +190,7 @@ def ring_reduce_scatter_stage(
     nxt, prv = (idx + 1) % m, (idx - 1) % m
     acc = block_fn((idx - 1) % m)  # own contribution to the departing block
     for s in range(1, m):
-        recv = mesh.ppermute(acc, name, nxt, prv)
+        recv = _maybe_inject(mesh.ppermute(acc, name, nxt, prv), name, s, mesh)
         acc = recv + block_fn((idx - s - 1) % m)
     return acc
 
@@ -148,8 +217,8 @@ def ring_all_to_all_stage(y: torch.Tensor, name: str, *,
     idx = mesh.axis_index(name)
     pieces = [y[idx]]
     for t in range(1, m):
-        pieces.append(mesh.ppermute(y[(idx + t) % m], name,
-                                    (idx + t) % m, (idx - t) % m))
+        recv = mesh.ppermute(y[(idx + t) % m], name, (idx + t) % m, (idx - t) % m)
+        pieces.append(_maybe_inject(recv, name, t, mesh))
     return _origin_order(pieces, idx)
 
 

@@ -8,8 +8,8 @@ reference's field by field (stages, links, modes, chunks, ``meta``) and
 every refusal must raise the same exception, over factors [8], [2, 4],
 [4, 2] and [2, 2, 2], ag/rs/ar/a2a, shards from 64 B to 16 MiB, every
 mode override, both regimes and the stage-order search on an asymmetric
-links table.  Also here: the policy that the port refuses
-(``verify=True``, ROADMAP A10), ``init_world``'s refusal to run a CUDA
+links table.  Also here: the ``verify`` policy, accepted and validated
+as the reference's, ``init_world``'s refusal to run a CUDA
 world without enough cards, and every op in every mode in a world of one
 gloo rank (the card's world: size-1 axes, no hops).
 """
@@ -233,11 +233,18 @@ def test_comm_context_nests_and_overrides_like_the_reference():
 
 
 def test_plan_policy_verify_is_refused_naming_A10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tapi.PlanPolicy(verify=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        with tapi.comm_context(axis_names=("a",), axis_sizes={"a": 2}, verify=True):
-            pass
+    """The fault layer (ROADMAP A10) is ported: ``verify=True`` is
+    accepted as the reference's is, and what the reference refuses
+    (a negative or non-int ``verify_retries``) the port refuses alike."""
+    for api in (japi, tapi):
+        pol = api.PlanPolicy(verify=True, verify_retries=2)
+        assert pol.verify and pol.verify_retries == 2
+        with api.comm_context(axis_names=("a",), axis_sizes={"a": 2}, verify=True) as ctx:
+            assert ctx.policy.verify
+    for bad in (-1, 1.5, "1"):
+        j = outcome(japi.PlanPolicy, verify=True, verify_retries=bad)
+        t = outcome(tapi.PlanPolicy, verify=True, verify_retries=bad)
+        assert j[:2] == ("raised", "ValueError") and j == t, (bad, j, t)
 
 
 def test_ops_need_a_mesh():
