@@ -29,12 +29,15 @@ fails:
    zamba2's head dim 80 too, causal at the serves' prompt lengths 71 and
    445 and at 1, 15 and 64, at granite's GQA rep 4, at hd 128, and at
    llama4-scout's prefill, H 40, Hkv 8 (GQA rep 5), hd 128, S 445, 71 and
-   128; ``[check/swiglu]`` at llama4-scout's routed-expert buffers (G, 16,
-   C, 8192) of a decode and of the 445-token prefill;
-   ``[check/rmsnorm]`` at d 2048, 2560, 4096, 5120, 128 and 100, at 4 and 1780
-   rows, and on a view one element past a 16-byte boundary).  Then
-   ``[check/grad]``: each wrapper under grad mode, whose output must carry
-   a ``grad_fn`` and whose input gradients (the plain version's vjp) must
+   128, at phi-3-vision's prefill, H = Hkv 32, hd 96, causal, S 71, 445,
+   576, 1024, 1 and 15, and at hubert-xlarge's encoder, H = Hkv 16, hd 80,
+   non-causal, S = T 1024 and 781; ``[check/swiglu]`` at llama4-scout's
+   routed-expert buffers (G, 16, C, 8192) of a decode and of the 445-token
+   prefill; ``[check/rmsnorm]`` at d 2048, 2560, 4096, 5120, 3072, 1280,
+   128 and 100, at 4 and 1780 rows, and on a view one element past a
+   16-byte boundary).  Then ``[check/grad]``: each wrapper under grad mode
+   (flash attention at hd 64 and 96), whose output must carry a
+   ``grad_fn`` and whose input gradients (the plain version's vjp) must
    match the plain version's own autograd;
 3. time: each kernel, its plain version, and one PyTorch call computing the
    same function (``library_ms``; the port never calls it; none exists for
@@ -43,7 +46,9 @@ fails:
    the replay of a CUDA graph that captured the same 20 calls (the device
    alone; kernel and library call),
    and the two scans at the decode shape too; flash attention at hd 64
-   (granite) and hd 80 (zamba2); the bound is computed from the shapes
+   (granite), hd 80 (zamba2), hd 96 (phi-3-vision, causal, H = Hkv 32)
+   and hubert's encoder (B 4, S = T 1024, non-causal, H = Hkv 16, hd 80);
+   the bound is computed from the shapes
    (bytes over 3.35 TB/s, operations over the H100's peak rate; each line
    prints both and names the one its ratio uses; the SSD's operations are
    those of the form its kernel computes, the f32 ones of the sequential
@@ -53,17 +58,22 @@ fails:
    full-width rwkv6-7b forward and a 2-layer, full-width zamba2-2.7b
    forward with the shared block after layer 1 (all f32), each with the
    same weights on the card (kernels) and on the CPU (plain versions): the
-   max logit error, the argmax agreement and the launch counts; and
+   max logit error, the argmax agreement and the launch counts;
    ``[forward/llama4]``, one full-width llama4-scout-17b-a16e layer (f32,
    weights drawn on the card and copied to the host, the last position's
-   logits);
+   logits); ``[forward/phi3v]``, 2 full-width phi-3-vision-4.2b layers on
+   (1, 640) inputs from ``input_specs``: a seeded (1, 576, 3072)
+   ``image_embeds`` over the first positions and 64 text tokens; and
+   ``[forward/hubert]``, 2 full-width hubert-xlarge layers on (2, 256,
+   1280) frame embeddings, non-causal, with its GELU FFN;
 5. train: ``[train/check]``, one ``make_train_step`` of a 2-layer,
    full-width granite-3-2b in f32 (remat on, B 2, S 128 from
    ``SyntheticLMPipeline``) on the card and on the CPU from the same
    weights: the loss (``TRAIN_LOSS_TOL``), every gradient, m and v leaf
    (``TRAIN_LEAF_RTOL``, scaled to the leaf), the update of every
    parameter and master leaf (``TRAIN_UPDATE_*``), and the step's launches;
-   ``[train/granite]``, full-width, full-depth granite-3-2b (bf16
+   ``[train/granite]`` (``train_full_phase``), full-width, full-depth
+   granite-3-2b (bf16
    parameters, f32 master, m and v, remat on) trained 6 steps at B 4, S
    1024 through ``make_train_step``: each step's loss, wall time and
    tokens/s, the model FLOPs share of the spec-sheet peak, the peak memory,
@@ -148,13 +158,28 @@ fails:
    from the same seed, B1-B3 launched (flash attention once a layer per
    prefill); it prints simulated and measured p50 and p99, whether their
    greedy < round-robin orderings match (not gated), its time and peak
-   memory.
+   memory;
+10. vlm and audio: ``[prefill/phi3v]``, full phi-3-vision-4.2b (32
+   layers, bf16) prefilling B 4, S 1024 (576 image positions and 448
+   tokens) into a decode state, ``head_mode="last"``: finite logits, one
+   launch of each kernel a layer, and logits that differ from the same
+   tokens' text-only prefill, with its time and peak memory;
+   ``[serve/phi3v]``, the same model through ``serve_phase`` as the other
+   serves (text prompts alone, as the reference's server serves it);
+   ``[encode/hubert]``, full hubert-xlarge (48 layers, bf16) over B 4 x
+   1024 frames, non-causal: finite logits, rmsnorm twice and flash
+   attention once a layer, its time against its compute bound; and
+   ``[train/hubert]``, hubert-xlarge trained 3 steps (bf16 parameters, f32
+   master, m and v, remat on, B 4, S 1024, seeded frame embeddings and
+   labels): finite losses, 193 rmsnorm and 96 flash launches a step, bf16
+   leaves after the last, step time and peak memory.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the 6 training steps of ``[train/granite]``, the four serves of
-phase 8 and the two cluster replays of phase 9, each counted from 0 just
-before it; ``max_abs_err`` the largest of phase 2's checks; the times from
-phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
+phase 8, the two cluster replays of phase 9 and, of phase 10, the gated
+prefill, the serve, the gated encoder forward and the 3 training steps,
+each counted from 0 just before it; ``max_abs_err`` the largest of phase
+2's checks; the times from phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
 power.limit --format=csv,noheader`` gives them, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
@@ -244,6 +269,11 @@ WKV6_CHECK_S = (1, 37, 65) + CHECK_S  # decode, ragged staged chunks, prompt len
 SSD_CHECK_S = (1, 37, 63, 64, 65, 129) + CHECK_S
 SSD_EDGE_S = (1, 65, 200)  # with decays of exactly 0 and 1
 TIME_S = 512  # the longest prompt: the timed shapes
+#: phi-3-vision's prefill: the 576-position image prefix and 448 text tokens
+VLM_PREFILL = dict(batch=4, seq=1024)
+#: hubert-xlarge's encoder: 1024 frames, about 20 s of 16 kHz audio at its
+#: 20 ms frame rate; the training run's steps
+AUDIO = dict(batch=4, seq=1024, train_steps=3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -337,12 +367,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def spec_batch(cfg, batch, seq, kind="prefill", seed=1):
+    """Torch CPU inputs of ``cfg`` at (batch, seq), one for each key of the
+    port's ``input_specs`` (the reference's keys): token ids and labels
+    drawn from ``numpy.random.default_rng(seed)`` in the vocabulary, frame
+    and image embeddings N(0, 1) in f32 (the model casts them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, input_specs
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, spec in input_specs(cfg, ShapeConfig("smoke", seq, batch, kind)).items():
+        if spec.dtype == torch.int32:
+            out[key] = torch.from_numpy(rng.integers(0, cfg.vocab_size, spec.shape))
+        else:
+            out[key] = torch.from_numpy(rng.standard_normal(spec.shape, dtype=np.float32))
+    return out
+
+
 def forward_phase(name, cfg, dev, expect_launches, layers=2, head_mode="full",
-                  draw_on_card=False):
+                  draw_on_card=False, shape=(2, 128)):
     """A ``layers``-layer, full-width f32 forward of ``cfg`` with the same
     weights on the card (kernels) and on the CPU (plain versions), drawn on
-    the CPU or, with ``draw_on_card`` (llama4's 17 GB), on the card."""
-    import numpy as np
+    the CPU or, with ``draw_on_card`` (llama4's 17 GB), on the card, on the
+    inputs ``spec_batch`` makes at ``shape`` (phi-3-vision's include its
+    image prefix, hubert's are frame embeddings)."""
     import torch
 
     from repro_torch.kernels import KERNELS
@@ -355,22 +406,23 @@ def forward_phase(name, cfg, dev, expect_launches, layers=2, head_mode="full",
     else:
         p_cpu = init_params(cfg2, seed=0, device="cpu")
         p_gpu = to_device(p_cpu, dev)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg2.vocab_size, (2, 128)))
+    b_cpu = spec_batch(cfg2, *shape)
+    inputs = {k: tuple(v.shape) for k, v in b_cpu.items()}
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
-        got, _ = forward(cfg2, p_gpu, {"tokens": toks.to(dev)}, head_mode=head_mode)
+        got, _ = forward(cfg2, p_gpu, to_device(b_cpu, dev), head_mode=head_mode)
         torch.cuda.synchronize()
         launches = {n: kern.launches for n, kern in KERNELS.items()}
         t1 = time.perf_counter()
-        want, _ = forward(cfg2, p_cpu, {"tokens": toks}, head_mode=head_mode)
+        want, _ = forward(cfg2, p_cpu, b_cpu, head_mode=head_mode)
     t2 = time.perf_counter()
     got = got.cpu()
     err = float((got - want).abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     n_params = sum(t.numel() for t in leaves(p_cpu))
-    print(f"[forward/{name}] {layers}-layer full-width f32 (2,128) head_mode={head_mode} "
+    print(f"[forward/{name}] {layers}-layer full-width f32 {inputs} head_mode={head_mode} "
           f"({n_params / 1e9:.3f} B parameters): max_abs_logit_err={err:.3e} "
           f"(atol {FORWARD_ATOL}) argmax_agreement={agree:.4f} "
           f"logit_absmax={float(want.abs().max()):.3f} launches={launches} "
@@ -498,45 +550,52 @@ def train_check_phase(cfg, dev):
     check(launches == expect, f"[train/check] launches {launches} != {expect}")
 
 
-def train_granite_phase(cfg, dev):
-    """[train/granite]: full-width, full-depth granite-3-2b trained TRAIN
-    steps on the card.  Returns (kernel launches over the steps, the bf16
-    gradient bytes of one step)."""
+def train_full_phase(name, cfg, dev, batches):
+    """[train/<name>]: ``cfg`` at full width and depth (bf16 parameters, f32
+    master, m and v, remat on) trained on the card through
+    ``make_train_step``, one step on each of ``batches`` (dicts of CPU
+    tensors: tokens or frame embeddings, and labels).  Gates: finite
+    losses, each step's launches (the forward runs twice a layer under
+    remat: 4L + 1 rmsnorm, 2L flash attention, 2L SwiGLU where the FFN is
+    SwiGLU; the backward is the plain versions' vjps), bf16 parameters and
+    f32 AdamW state after the last step.  Returns (kernel launches over the
+    steps, the bf16 gradient bytes of one step)."""
     import torch
 
     from repro_torch.configs import param_count
-    from repro_torch.data import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels import KERNELS
     from repro_torch.models import init_params
     from repro_torch.optim import OptimizerConfig, adamw_init
     from repro_torch.runtime import make_train_step
     from repro_torch.tree import tree_leaves
 
+    tag = f"[train/{name}]"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
     params = init_params(cfg, seed=0, device=dev)
     leaves = tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
     grad_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    steps = len(batches)
+    B, S = batches[0]["labels"].shape
     opt_cfg = OptimizerConfig(warmup_steps=TRAIN["warmup_steps"], decay_steps=steps)
     opt_state = adamw_init(params, opt_cfg)
     torch.cuda.synchronize()
     fixed = torch.cuda.memory_allocated() - before
-    print(f"[train/granite] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} {cfg.dtype} "
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers d={cfg.d_model} {cfg.dtype} "
           f"remat={cfg.remat}: {n_params / 1e9:.3f} B parameters; parameters and AdamW state "
           f"(f32 master, m, v) {fixed / 2**30:.2f} GiB; B {B}, S {S}, {steps} steps")
-    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab_size, S, B))
     train_step = make_train_step(cfg, opt_cfg)
     L = cfg.num_layers
     expect = {n: 0 for n in KERNELS}
-    expect.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    expect.update(rmsnorm=4 * L + 1, flash_attention=2 * L,
+                  swiglu=2 * L if cfg.family != "audio" else 0)
     # model FLOPs of one step: 6 per parameter and token in the matmuls
-    # (the tied head counts once, the norms' scales not), and the causal
-    # attention products' forward (4 hd per query-key pair) three times
+    # (the tied head counts once, the norms' scales not), and the attention
+    # products' forward (4 hd per query-key pair; causal or all) three times
     mm_params = n_params - sum(p.numel() for p in leaves if p.dim() == 1)
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if cfg.causal else S * S
     attn_fwd = 4 * B * cfg.num_heads * cfg.head_dim * pairs * L
     model_flops = 6 * mm_params * B * S + 3 * attn_fwd
     # with remat the forward runs twice: 8 per parameter and token, 4x attention
@@ -544,7 +603,7 @@ def train_granite_phase(cfg, dev):
     total = {n: 0 for n in KERNELS}
     times, losses = [], []
     for step in range(steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+        batch = to_device(batches[step], dev)
         for kern in KERNELS.values():
             kern.launches = 0
         torch.cuda.synchronize()
@@ -558,26 +617,26 @@ def train_granite_phase(cfg, dev):
             total[n] += launches[n]
         times.append(dt)
         losses.append(loss)
-        print(f"[train/granite] step {step} loss {loss:.4f} time {dt:.3f}s "
+        print(f"{tag} step {step} loss {loss:.4f} time {dt:.3f}s "
               f"{B * S / dt:.1f} tokens/s launches {launches}")
-        check(math.isfinite(loss), f"[train/granite] step {step}: loss {loss}")
-        check(launches == expect, f"[train/granite] step {step}: launches {launches} != {expect}")
+        check(math.isfinite(loss), f"{tag} step {step}: loss {loss}")
+        check(launches == expect, f"{tag} step {step}: launches {launches} != {expect}")
     peak = torch.cuda.max_memory_allocated()
     best = min(times[1:])
-    print(f"[train/granite] steady step (best of steps 1-{steps - 1}) {best:.3f}s, "
+    print(f"{tag} steady step (best of steps 1-{steps - 1}) {best:.3f}s, "
           f"{B * S / best:.1f} tokens/s; model FLOPs {model_flops / 1e12:.2f} TFLOP a step "
-          f"(with the remat forward {remat_flops / 1e12:.2f} TFLOP, {remat_flops / BF16_TENSOR_FLOP_S:.4f}"
-          f" s at the spec-sheet peak); model FLOPs share of the H100's "
-          f"{BF16_TENSOR_FLOP_S / 1e12:.0f} TFLOP/s bf16 spec-sheet peak "
+          f"(with the remat forward {remat_flops / 1e12:.2f} TFLOP, "
+          f"{remat_flops / BF16_TENSOR_FLOP_S:.4f} s at the spec-sheet peak); model FLOPs "
+          f"share of the H100's {BF16_TENSOR_FLOP_S / 1e12:.0f} TFLOP/s bf16 spec-sheet peak "
           f"{model_flops / best / BF16_TENSOR_FLOP_S:.4f}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB before init_params); "
           f"param_count {param_count(cfg) / 1e9:.3f} B")
     dtypes = {str(p.dtype) for p in tree_leaves(params)}
     states = {str(t.dtype) for k in ("master", "m", "v") for t in tree_leaves(opt_state[k])}
-    print(f"[train/granite] after step {steps - 1}: parameter dtypes {sorted(dtypes)}, "
+    print(f"{tag} after step {steps - 1}: parameter dtypes {sorted(dtypes)}, "
           f"master/m/v dtypes {sorted(states)}; losses {[round(x, 4) for x in losses]}")
-    check(dtypes == {"torch.bfloat16"}, f"[train/granite] a parameter left bf16: {dtypes}")
-    check(states == {"torch.float32"}, f"[train/granite] AdamW state dtypes {states}")
+    check(dtypes == {"torch.bfloat16"}, f"{tag} a parameter left bf16: {dtypes}")
+    check(states == {"torch.float32"}, f"{tag} AdamW state dtypes {states}")
     del params, opt_state, leaves, metrics, batch
     torch.cuda.empty_cache()
     return total, grad_bytes
@@ -1263,7 +1322,116 @@ def cluster_card_phase(cfg, dev):
     return total
 
 
-def check_phase(dev, cfg, rcfg, zcfg, lcfg):
+def prefill_vlm_phase(vcfg, dev):
+    """[prefill/phi3v]: full phi-3-vision-4.2b (bf16, random weights from
+    seed 0) prefills B 4, S 1024 into a decode state: the image prefix
+    ``image_embeds`` over positions [0, 576) and 448 text tokens,
+    ``head_mode="last"``.  Gates: finite logits, one launch of each kernel
+    a layer (rmsnorm 2L + 1), and last-position logits that differ from the
+    same tokens' text-only prefill (the prefix is used).  Prints the
+    prefill's time and the peak memory.  Returns the launches of the gated
+    prefill."""
+    import torch
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import forward, init_decode_state, init_params
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = VLM_PREFILL["batch"], VLM_PREFILL["seq"]
+    params = init_params(vcfg, seed=0, device=dev)
+    batch = to_device(spec_batch(vcfg, B, S, seed=2), dev)
+    state = init_decode_state(vcfg, B, S, device=dev)
+    L = vcfg.num_layers
+    with torch.no_grad():
+        forward(vcfg, params, batch, cache=state, cache_pos=0, head_mode="last")  # warm-up
+        torch.cuda.synchronize()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = forward(vcfg, params, batch, cache=state, cache_pos=0, head_mode="last")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {n: kern.launches for n, kern in KERNELS.items()}
+        text, _ = forward(vcfg, params, {"tokens": batch["tokens"]}, cache=state,
+                          cache_pos=0, head_mode="last")
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 0 for n in KERNELS}
+    want.update(rmsnorm=2 * L + 1, swiglu=L, flash_attention=L)
+    diff = float((logits - text).abs().max())
+    scale = float(logits.abs().max())
+    agree = float((logits.argmax(-1) == text.argmax(-1)).float().mean())
+    n_tokens = S - vcfg.num_prefix_embeds
+    print(f"[prefill/phi3v] {vcfg.name} {L} layers bf16, B {B}, S {S} ({vcfg.num_prefix_embeds} "
+          f"image positions + {n_tokens} tokens) into a decode state, head_mode=last: "
+          f"{dt * 1e3:.2f} ms ({B * S / dt:.0f} positions/s); logits {tuple(logits.shape)} "
+          f"absmax {scale:.3f}, against the text-only prefill max_abs_diff {diff:.3e}, argmax "
+          f"agreement {agree:.2f}; launches {launches}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB before init_params)")
+    check(logits.shape == (B, vcfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "[prefill/phi3v] non-finite logits or wrong shape")
+    check(launches == want, f"[prefill/phi3v] launches {launches} != {want}")
+    check(diff > 1e-3 * scale, "[prefill/phi3v] the image prefix did not change the logits")
+    del params, batch, state, logits, text
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encode_audio_phase(acfg, dev):
+    """[encode/hubert]: full hubert-xlarge (48 layers, bf16, random weights
+    from seed 0) encodes B 4 x 1024 frames of seeded frame embeddings,
+    non-causal, through the full head.  Gates: finite (B, S, 504) logits
+    and one launch of rmsnorm twice and flash attention once a layer (its
+    FFN is GELU: no SwiGLU).  Prints the forward's time against its compute
+    bound: 2 operations per parameter and frame in the matrix products and
+    4 hd per (query, key) pair of the attention, over the bf16 spec-sheet
+    peak.  Returns the launches of the gated forward."""
+    import torch
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import forward, init_params
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, L = AUDIO["batch"], AUDIO["seq"], acfg.num_layers
+    params = init_params(acfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    mm_params = n_params - sum(t.numel() for t in leaves(params) if t.dim() == 1)
+    batch = to_device(spec_batch(acfg, B, S, seed=3), dev)
+    with torch.no_grad():
+        forward(acfg, params, batch)  # warm-up
+        torch.cuda.synchronize()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        out, _ = forward(acfg, params, batch)
+        torch.cuda.synchronize()
+        launches = {n: kern.launches for n, kern in KERNELS.items()}
+        ms = time_ms(lambda: forward(acfg, params, batch), reps=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    attn_ops = 4 * B * acfg.num_heads * acfg.head_dim * S * S * L
+    ops = 2 * mm_params * B * S + attn_ops
+    bound_ms = ops / BF16_TENSOR_FLOP_S * 1e3
+    want = {n: 0 for n in KERNELS}
+    want.update(rmsnorm=2 * L + 1, flash_attention=L)
+    print(f"[encode/hubert] {acfg.name} {L} layers d={acfg.d_model} bf16 ({n_params / 1e9:.3f} B "
+          f"parameters, {n_params * 2 / 1e9:.2f} GB), B {B} x {S} frames non-causal: forward "
+          f"{ms:.2f} ms (CUDA events, mean of 3) against its compute bound {bound_ms:.2f} ms "
+          f"({ops / 1e12:.2f} TFLOP, attention {attn_ops / 1e12:.2f}, at "
+          f"{BF16_TENSOR_FLOP_S / 1e12:.0f} TFLOP/s): {ms / bound_ms:.2f}x; logits "
+          f"{tuple(out.shape)} absmax {float(out.abs().max()):.3f}; launches {launches}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB before "
+          f"init_params)")
+    check(out.shape == (B, S, acfg.vocab_size) and bool(torch.isfinite(out).all()),
+          "[encode/hubert] non-finite output or wrong shape")
+    check(launches == want, f"[encode/hubert] launches {launches} != {want}")
+    del params, batch, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg):
     """Phase 2: each kernel against its plain version on the card.  Returns
     the largest abs error of each kernel."""
     import torch
@@ -1313,10 +1481,12 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg):
             compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype,
                     f"llama4 experts (G {groups}, E {E}, C {cap}, f {lf}) = "
                     f"({groups * E * cap},{lf}) rows")
-        # rmsnorm at the other serving widths (zamba2, rwkv6, llama4), qk_norm's hd
-        # 128 and a d off the 16-byte chunk, at decode and 4 x 445 rows; then
-        # an unaligned view (the element-wise path)
-        for width in (zcfg.d_model, rcfg.d_model, lcfg.d_model, 128, 100):
+        # rmsnorm at the other serving widths (zamba2, rwkv6, llama4,
+        # phi-3-vision, hubert), qk_norm's hd 128 and a d off the 16-byte
+        # chunk, at decode and 4 x 445 rows; then an unaligned view (the
+        # element-wise path)
+        for width in (zcfg.d_model, rcfg.d_model, lcfg.d_model, vcfg.d_model,
+                      acfg.d_model, 128, 100):
             for rows in (B, B * 445):
                 x = randn(rows, width, dtype=dtype)
                 sc = randn(width, dtype=dtype, mul=0.1, add=1.0)
@@ -1338,6 +1508,14 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg):
         # llama4-scout's prefill: H 40, Hkv 8 (GQA rep 5), hd 128, at the
         # serve's prompt lengths and the forward check's S 128
         cases += [(B, lH, lHkv, s, s, lhd, True) for s in (445, 71, 128)]
+        # phi-3-vision's prefill: MHA, hd 96, at the serve's prompt lengths,
+        # the image prefix alone (576), the prefill phase's S 1024 and short
+        # tiles; hubert's encoder: non-causal, 16 heads of 80, 1024 frames
+        # and a ragged 781
+        cases += [(B, vcfg.num_heads, vcfg.num_kv_heads, s, s, vcfg.head_dim, True)
+                  for s in (71, 445, 576, 1024, 1, 15)]
+        cases += [(B, acfg.num_heads, acfg.num_kv_heads, s, s, acfg.head_dim, False)
+                  for s in (1024, 781)]
         for b, h, hk, s, t, e, causal in cases:
             q = randn(b, h, s, e, dtype=dtype, mul=0.5)
             k = randn(b, hk, t, e, dtype=dtype, mul=0.5)
@@ -1417,6 +1595,12 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg):
                    [randn(B, H, 71, hd, dtype=dtype, mul=0.5),
                     randn(B, Hkv, 71, hd, dtype=dtype, mul=0.5), randn(B, Hkv, 71, hd, dtype=dtype)],
                    dtype, f"B={B} H={H} Hkv={Hkv} S=T=71 hd={hd} causal")
+        vH, vhd = vcfg.num_heads, vcfg.head_dim
+        grad_check("flash_attention", flash_attention, ref.flash_attention,
+                   [randn(B, vH, 71, vhd, dtype=dtype, mul=0.5),
+                    randn(B, vH, 71, vhd, dtype=dtype, mul=0.5),
+                    randn(B, vH, 71, vhd, dtype=dtype)],
+                   dtype, f"B={B} H={vH} Hkv={vH} S=T=71 hd={vhd} causal")
         grad_check("wkv6", rwkv6_scan, ref.rwkv6_scan, list(wkv6_inputs(37, dtype)), dtype,
                    f"B={B} H={rH} S=37 hd={rhd}")
         grad_check("mamba2_ssd", mamba2_ssd_scan, ref.mamba2_ssd_scan,
@@ -1473,7 +1657,7 @@ def make_inputs(dev, rcfg, zcfg):
     return randn, wkv6_inputs, ssd_inputs
 
 
-def time_phase(dev, cfg, rcfg, zcfg):
+def time_phase(dev, cfg, rcfg, zcfg, vcfg, acfg):
     """Phase 3: kernel, plain version and library call at the largest
     serving shape (bf16).  Returns {name: times and bound}."""
     import torch
@@ -1496,18 +1680,18 @@ def time_phase(dev, cfg, rcfg, zcfg):
     g, u = randn(rows, dff, dtype=bf16), randn(rows, dff, dtype=bf16)
     rms_lib = ((lambda: F.rms_norm(x, (d,), weight=sc, eps=cfg.norm_eps))
                if hasattr(F, "rms_norm") else None)
-    pairs = TIME_S * (TIME_S + 1) // 2  # (query, key) pairs under the causal mask
-
-    def flash_timed(h, hkv, e):
-        """Causal flash attention at (B, h, 512, e), kv heads hkv.  Bytes: q,
-        k, v read and o written once.  Operations: QK^T and PV over the
-        causal pairs (4 e per pair), on the bf16 tensor cores."""
-        q = randn(B, h, TIME_S, e, dtype=bf16, mul=0.5)
-        k = randn(B, hkv, TIME_S, e, dtype=bf16, mul=0.5)
-        v = randn(B, hkv, TIME_S, e, dtype=bf16)
+    def flash_timed(h, hkv, e, S=TIME_S, causal=True):
+        """Flash attention at (B, h, S, e), kv heads hkv, S = T.  Bytes: q, k,
+        v read and o written once.  Operations: QK^T and PV over the
+        (query, key) pairs the mask keeps (4 e per pair), on the bf16
+        tensor cores."""
+        q = randn(B, h, S, e, dtype=bf16, mul=0.5)
+        k = randn(B, hkv, S, e, dtype=bf16, mul=0.5)
+        v = randn(B, hkv, S, e, dtype=bf16)
+        pairs = S * (S + 1) // 2 if causal else S * S
 
         def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=hkv != h)
 
         try:
@@ -1515,11 +1699,12 @@ def time_phase(dev, cfg, rcfg, zcfg):
         except TypeError:  # a torch without enable_gqa has no one-call GQA attention
             sdpa = None
         return dict(
-            kernel=lambda: flash_attention(q, k, v, causal=True),
-            plain=lambda: ref.flash_attention(q, k, v, causal=True), library=sdpa,
-            bytes=(2 * B * h * TIME_S * e + 2 * B * hkv * TIME_S * e) * es,
+            kernel=lambda: flash_attention(q, k, v, causal=causal),
+            plain=lambda: ref.flash_attention(q, k, v, causal=causal), library=sdpa,
+            bytes=(2 * B * h * S * e + 2 * B * hkv * S * e) * es,
             ops=4 * B * h * e * pairs, peak=BF16_TENSOR_FLOP_S,
-            shape=f"q ({B},{h},{TIME_S},{e}) k,v ({B},{hkv},{TIME_S},{e}) bf16 causal")
+            shape=f"q ({B},{h},{S},{e}) k,v ({B},{hkv},{S},{e}) bf16 "
+                  f"{'causal' if causal else 'non-causal'}")
 
     def wkv6_timed(S):
         """WKV6 at (B, 64, S, 64) bf16.  Bytes: r, k, v, w read and y written
@@ -1582,6 +1767,10 @@ def time_phase(dev, cfg, rcfg, zcfg):
             shape=f"gate, up ({rows},{dff}) bf16"),
         "flash_attention": flash_timed(H, Hkv, hd),
         "flash_attention hd80": flash_timed(zcfg.num_heads, zcfg.num_kv_heads, zcfg.head_dim),
+        # phi-3-vision's prefill (hd 96) and hubert's encoder (non-causal, S 1024)
+        "flash_attention hd96": flash_timed(vcfg.num_heads, vcfg.num_kv_heads, vcfg.head_dim),
+        "flash_attention hubert": flash_timed(acfg.num_heads, acfg.num_kv_heads,
+                                              acfg.head_dim, S=AUDIO["seq"], causal=False),
         "wkv6": wkv6_timed(TIME_S),
         "wkv6 decode": wkv6_timed(1),
         "mamba2_ssd": ssd_timed(TIME_S),
@@ -1629,6 +1818,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config, param_count
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels import KERNELS, build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -1653,12 +1843,14 @@ def main() -> int:
     rcfg = get_config("rwkv6-7b")
     zcfg = get_config("zamba2-2.7b")
     lcfg = get_config("llama4-scout-17b-a16e")
+    vcfg = get_config("phi-3-vision-4.2b")
+    acfg = get_config("hubert-xlarge")
 
     # ---- 2. check each kernel against its plain version on the card ---------
-    max_err = check_phase(dev, cfg, rcfg, zcfg, lcfg)
+    max_err = check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg)
 
     # ---- 3. time at the largest serving shape (bf16) -------------------------
-    results = time_phase(dev, cfg, rcfg, zcfg)
+    results = time_phase(dev, cfg, rcfg, zcfg, vcfg, acfg)
     torch.cuda.empty_cache()  # phases 2 and 3 hold no tensor past their return
     print(f"[smoke] {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before "
           f"the forwards and serves")
@@ -1674,10 +1866,19 @@ def main() -> int:
     # one llama4-scout layer: SwiGLU for the routed experts and the shared one
     forward_phase("llama4", lcfg, dev, dict(none, rmsnorm=3, swiglu=2, flash_attention=1),
                   layers=1, head_mode="last", draw_on_card=True)
+    # phi-3-vision: the 576-position image prefix and 64 text tokens;
+    # hubert: frame embeddings, non-causal, a GELU FFN
+    forward_phase("phi3v", vcfg, dev, dict(none, rmsnorm=5, swiglu=2, flash_attention=2),
+                  shape=(1, vcfg.num_prefix_embeds + 64))
+    forward_phase("hubert", acfg, dev, dict(none, rmsnorm=5, flash_attention=2),
+                  shape=(2, 256))
 
     # ---- 5. train: card vs CPU, full granite, the planner, resume -----------
     train_check_phase(cfg, dev)
-    trained, grad_bytes = train_granite_phase(cfg, dev)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"]))
+    trained, grad_bytes = train_full_phase(
+        "granite", cfg, dev,
+        [{k: torch.from_numpy(v) for k, v in next(pipe).items()} for _ in range(TRAIN["steps"])])
     plan_phase(grad_bytes)
     train_resume_phase(cfg, dev)
     torch.cuda.empty_cache()
@@ -1720,6 +1921,15 @@ def main() -> int:
     # ---- 9. two granite-3-2b replicas behind a routing policy ---------------
     cluster = cluster_card_phase(cfg, dev)
 
+    # ---- 10. the vlm and audio families ---------------------------------------
+    vlm_prefill = prefill_vlm_phase(vcfg, dev)
+    phi3v = serve_phase("phi3v", vcfg, dev, lambda L, prefill: dict(
+        none, rmsnorm=2 * L + 1, swiglu=L, flash_attention=L if prefill else 0))
+    encoded = encode_audio_phase(acfg, dev)
+    audio_trained, _ = train_full_phase(
+        "hubert", acfg, dev, [spec_batch(acfg, AUDIO["batch"], AUDIO["seq"], "train", seed=s)
+                              for s in range(AUDIO["train_steps"])])
+
     # ---- result --------------------------------------------------------------
     kernels = []
     for name in KERNELS:
@@ -1729,7 +1939,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
             "launches": (trained[name] + granite[name] + rwkv6[name] + zamba2[name]
-                         + llama4[name] + cluster[name]),
+                         + llama4[name] + cluster[name] + vlm_prefill[name] + phi3v[name]
+                         + encoded[name] + audio_trained[name]),
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],

@@ -1,19 +1,25 @@
 """Architecture registry: ``get_config(name)`` / ``--arch <id>``.
 
-The same names and configurations as ``repro.configs``.  The port runs the
-dense, ssm, hybrid and moe families; vlm and audio (phi-3-vision, hubert)
-are plain data until ROADMAP A13.
+The same names and configurations as ``repro.configs``, and the same input
+shapes (``SHAPES``, ``shape_supported``, ``input_specs``).  The port runs
+every family: dense, moe, ssm (rwkv6), hybrid (zamba2), vlm (phi-3-vision,
+served on tokens alone) and audio (hubert, an encoder: no decode).
 """
 from typing import Dict, List
 
 from .base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
     MoEConfig,
+    ShapeConfig,
     SSMConfig,
+    TensorSpec,
     active_param_count,
     expert_parallel,
+    input_specs,
     param_count,
     reduced,
+    shape_supported,
 )
 
 from . import (

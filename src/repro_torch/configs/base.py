@@ -4,19 +4,28 @@
 The config dataclasses, ``reduced``, ``param_count``,
 ``active_param_count`` and the expert-parallel knob ``expert_parallel`` are
 copied field for field, so a config means the same model in both packages.
-The input-shape cells (``ShapeConfig``, ``input_specs``) are left out
-(ROADMAP A12).
+So are the input shapes: ``ShapeConfig``, the four ``SHAPES``,
+``shape_supported`` and ``input_specs``, whose stand-ins are
+:class:`TensorSpec` (shape and ``torch.dtype``) where the reference has
+``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch
 
 __all__ = [
     "MoEConfig",
     "SSMConfig",
     "ModelConfig",
+    "ShapeConfig",
+    "SHAPES",
+    "TensorSpec",
+    "shape_supported",
+    "input_specs",
     "expert_parallel",
     "reduced",
     "param_count",
@@ -118,6 +127,73 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         """Sub-quadratic token mixing => the 500k decode shape is runnable."""
         return self.family in ("ssm", "hybrid")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, why not): an encoder-only model has no decode, and a
+    full-attention model skips the 524k decode."""
+    if shape.kind == "decode" and cfg.is_encoder_only:
+        return False, "encoder-only architecture has no autoregressive decode"
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: O(S^2) at 524k — skipped per assignment"
+    return True, ""
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one model input, with no storage."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
+
+
+def _spec(shape, dtype: str) -> TensorSpec:
+    return TensorSpec(tuple(shape), _DTYPES[dtype])
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+    """Model inputs for one (arch, shape) cell, under the reference's keys.
+
+    train:    {tokens, labels}               (full sequence)
+    prefill:  {tokens}                       (full sequence, no labels)
+    decode:   {tokens (B,1), cache_pos ()}   (the K/V cache or recurrent
+                                              state is the serve state)
+
+    An audio model takes frame embeddings ``embeds`` (B, S, d) in place of
+    ``tokens``; a vision model takes ``image_embeds`` (B, num_prefix_embeds,
+    d) beside them, outside decode.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    specs: Dict[str, TensorSpec] = {}
+    if cfg.frontend == "audio":
+        specs["embeds"] = _spec((B, S, cfg.d_model), cfg.dtype)
+    else:
+        specs["tokens"] = _spec((B, 1) if shape.kind == "decode" else (B, S), "int32")
+    if cfg.frontend == "vision" and shape.kind != "decode":
+        specs["image_embeds"] = _spec((B, cfg.num_prefix_embeds, cfg.d_model), cfg.dtype)
+    if shape.kind == "train":
+        specs["labels"] = _spec((B, S), "int32")
+    if shape.kind == "decode":
+        specs["cache_pos"] = _spec((), "int32")
+    return specs
 
 
 def expert_parallel(cfg: ModelConfig, axis: str = "data") -> ModelConfig:

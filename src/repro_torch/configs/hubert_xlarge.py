@@ -2,8 +2,8 @@
 [arXiv:2106.07447; unverified]
 
 The conv feature extractor is a stub: the model takes precomputed frame
-embeddings (B, S, d_model).  Encoder-only => bidirectional attention, no
-decode shapes.  Plain data; the port does not run this family yet.
+embeddings (B, S, d_model) as ``batch["embeds"]``.  Encoder-only =>
+bidirectional attention, no decode shapes.
 """
 from .base import ModelConfig
 

@@ -2,8 +2,8 @@
 [hf:microsoft/Phi-3-vision-128k-instruct; hf]
 
 The modality frontend is a stub: precomputed patch embeddings are merged
-into the first ``num_prefix_embeds`` positions of the token stream.  Plain
-data; the port does not run this family yet.
+into the first ``num_prefix_embeds`` positions of the token stream
+(``batch["image_embeds"]``; the server passes tokens alone).
 """
 from .base import ModelConfig
 

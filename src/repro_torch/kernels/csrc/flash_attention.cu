@@ -15,10 +15,13 @@
 // the serving path).
 //
 // Bound on the H100: at the serving shapes (hd 64 for granite, 80 for
-// zamba2's shared block, S = T <= 1024) bytes: q, k, v and o once each over
-// 3.35 TB/s take 6 to 13 us at (4, 32, 512, hd), the causal QK^T and PV
-// products 4 to 6 us at 989 TFLOP/s.  Both are small, so what decides the
-// time is how well the tensor cores are fed and how much latency is hidden.
+// zamba2's shared block, 96 for phi-3-vision, S = T <= 1024) bytes: q, k, v
+// and o once each over 3.35 TB/s take 6 to 15 us at (4, 32, 512, hd), the
+// causal QK^T and PV products 4 to 7 us at 989 TFLOP/s.  Both are small,
+// so what decides the time is how well the tensor cores are fed and how
+// much latency is hidden.  hubert's encoder (non-causal, H 16, hd 80, S =
+// T = 1024 at B 4) is the one shape where the products lead: 21.5 GFLOP,
+// 22 us, against 13 us of bytes.
 //
 // The dtype chooses the kernel; nothing falls back on a failure.
 //
@@ -28,11 +31,14 @@
 // K and V tiles of 64 keys x hd stay bf16 in shared memory, double-
 // buffered with 16-byte cp.async copies so the next tile's load overlaps
 // this tile's math; rows are padded by 16 bytes, which puts the 8 rows of
-// every ldmatrix on distinct banks at each hd.  S = QK^T and O += PV run
-// as mma.sync m16n8k16 bf16 products with f32 accumulators; the f32
-// scores are multiplied by scale*log2(e) (never folded into the bf16 q,
-// which would add a rounding the plain version does not make) and
-// exponentiated with exp2f.  Each thread holds two rows of the score
+// every ldmatrix on distinct banks at each hd (a row is an odd number of
+// 16-byte chunks: 208 B, 13 chunks, at hd 96).  hd 96 takes 66,560 B of
+// shared memory a block, above the 48 KB default (launch_mma sets the
+// attribute), and two blocks an SM take 133 KB of the 227 KB.  S = QK^T
+// and O += PV run as mma.sync m16n8k16 bf16 products with f32
+// accumulators; the f32 scores are multiplied by scale*log2(e) (never
+// folded into the bf16 q, which would add a rounding the plain version
+// does not make) and exponentiated with exp2f.  Each thread holds two rows of the score
 // fragment: their max is taken over the quad with two shuffles per tile,
 // their sums once at the end.  The score accumulator's layout is the A
 // layout of the next product, so P goes to bf16 in registers (the plain
@@ -300,8 +306,8 @@ template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H,
                        int Hkv, int S, int Tk, float scale, int causal, int device,
                        cudaStream_t stream) {
-  // dynamic shared memory above 48 KB (hd 80: 55 KB, hd 128: 85 KB) needs
-  // the attribute, set once per device
+  // dynamic shared memory above 48 KB (hd 80: 55 KB, hd 96: 65 KB, hd 128:
+  // 85 KB) needs the attribute, set once per device
   static uint64_t configured = 0;
   constexpr int kSmem = Tile<HD>::kSmemBytes;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
@@ -446,7 +452,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // q, o: (B, H, S, hd); k, v: (B, Hkv, T, hd); all contiguous, H % Hkv == 0,
-// hd in {16, 32, 64, 80, 128}, causal only with S == T; bf16 q, k, v
+// hd in {16, 32, 64, 80, 96, 128}, causal only with S == T; bf16 q, k, v
 // 16-byte aligned.  dtype: repro::DType.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int H, int Hkv, int S, int T, int hd, float scale,
@@ -461,8 +467,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       return launch<32>(q, k, v, o, B, H, Hkv, S, T, scale, causal, dtype, device, s);
     case 64:
       return launch<64>(q, k, v, o, B, H, Hkv, S, T, scale, causal, dtype, device, s);
-    case 80:  // zamba2's shared attention block
+    case 80:  // zamba2's shared attention block, hubert-xlarge
       return launch<80>(q, k, v, o, B, H, Hkv, S, T, scale, causal, dtype, device, s);
+    case 96:  // phi-3-vision-4.2b
+      return launch<96>(q, k, v, o, B, H, Hkv, S, T, scale, causal, dtype, device, s);
     case 128:
       return launch<128>(q, k, v, o, B, H, Hkv, S, T, scale, causal, dtype, device, s);
     default:

@@ -27,7 +27,7 @@ from .build import DTYPE_CODES, CudaKernel, stream_of
 __all__ = ["flash_attention", "KERNEL", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 KERNEL = CudaKernel(
     "flash_attention.cu", "repro_flash_attention",

@@ -10,14 +10,17 @@ The single-server and cluster paths of ``repro/launch/serve.py``:
       --reduced --device cpu --requests 5
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4-scout-17b-a16e --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --reduced --device cpu --replicas 2 --hetero --policy greedy
 
-It serves the dense (granite-3-2b), ssm (rwkv6-7b), hybrid (zamba2-2.7b)
-and moe (llama4-scout-17b-a16e, arctic-480b) families; a full-depth MoE
-model does not fit one card.  Weights are random (``init_params`` with
-seed 0, as the reference's ``jax.random.key(0)``; replica i of a cluster
-with seed i); prompts are drawn from ``--seed`` with the reference's
+It serves the dense (granite-3-2b), ssm (rwkv6-7b), hybrid (zamba2-2.7b),
+moe (llama4-scout-17b-a16e, arctic-480b) and vlm (phi-3-vision-4.2b, on
+text prompts alone, as the reference's server runs it) families; a
+full-depth MoE model does not fit one card, and the encoder-only audio
+model (hubert-xlarge) has nothing to decode and exits.  Weights are random
+(``init_params`` with seed 0, as the reference's ``jax.random.key(0)``;
+replica i of a cluster with seed i); prompts are drawn from ``--seed`` with the reference's
 lengths (4 to 19 tokens; 8 in a cluster's trace).  It runs on ``cuda``
 unless ``--device cpu`` is given, and prints the drain report and how many
 times each hand-written kernel was launched.

@@ -7,8 +7,11 @@ The single-device path of ``repro/launch/train.py``:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --seq 1024 --batch 4 --steps 6
 
-Weights are random (``init_params`` with seed 0), batches come from
-``SyntheticLMPipeline`` (seed 0), and the optimizer is the reference's
+Weights are random (``init_params`` with seed 0), batches of tokens and
+labels come from ``SyntheticLMPipeline`` (seed 0; a vision model such as
+phi-3-vision-4.2b trains on them text-only, as the reference's launcher
+runs it; the audio model takes frame embeddings, which the pipeline does
+not make, and is refused), and the optimizer is the reference's
 AdamW with its warm-up ``min(20, steps // 5 + 1)`` and a cosine decay over
 ``--steps``.  The steps run through ``runtime.Trainer``: a checkpoint of
 the parameters, the optimizer state and the pipeline's position is saved
@@ -66,6 +69,9 @@ def main(argv: Optional[List[str]] = None) -> float:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.frontend == "audio":
+        raise SystemExit(f"{cfg.name} takes frame embeddings (batch['embeds']); the "
+                         f"synthetic pipeline makes token batches")
     if args.reduced:
         cfg = dataclasses.replace(reduce_cfg(cfg), dtype="float32")
     seq = args.seq or 64

@@ -1,9 +1,10 @@
-"""Model assembly for the dense, moe, ssm and hybrid families: init /
-forward / loss / decode.
+"""Model assembly for every family: init / forward / loss / decode.
 
-The counterpart of ``repro/models/model.py`` for four families:
+The counterpart of ``repro/models/model.py``:
 
-  dense          : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
+  dense, vlm     : [rmsnorm -> attention -> rmsnorm -> SwiGLU FFN] x L
+  audio          : [rmsnorm -> attention -> rmsnorm -> GELU FFN] x L,
+                   bidirectional (an encoder)
   moe            : [rmsnorm -> attention -> rmsnorm -> MoE block] x L
   ssm (rwkv6)    : [rmsnorm -> time-mix -> rmsnorm -> channel-mix] x L
   hybrid (zamba2): [rmsnorm -> Mamba2] x L, and after every
@@ -18,7 +19,11 @@ Python loop over it.  The hybrid's shared block has one set of weights
 invocation: layer ``i`` with ``i % every == every - 1`` uses slot
 ``i // every``.  The MoE block (``models/moe.py``) returns auxiliary
 losses, summed over the layers as the reference's scan carry sums them.
-The vlm and audio families are a later slice of the port (ROADMAP A13).
+The inputs enter through ``_embed_inputs``: token ids through the
+embedding table; an audio model's precomputed frame embeddings
+``batch["embeds"]`` in their place (it has no table); a vision model's
+``batch["image_embeds"]`` written over the first positions of its token
+embeddings.
 
 Parameters are nested dicts of tensors with the reference's names, dtypes
 and the JAX layouts (dense ``w`` as ``(d_in, d_out)``), drawn from an
@@ -88,11 +93,12 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, moe, ssm and hybrid families; "
-            f"{cfg.family!r} waits for A13 (ROADMAP queue A)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {_FAMILIES}")
 
 
 # --------------------------------------------------------------------------
@@ -147,10 +153,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> 
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {}
-    # vocab rows are padded to cfg.padded_vocab, as in the reference; the
-    # padded logits are dropped after the head
-    embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=dev) * 0.02
-    params["embed"] = embed.to(dtype)
+    if cfg.frontend != "audio":  # an audio model takes frame embeddings: no table
+        # vocab rows are padded to cfg.padded_vocab, as in the reference; the
+        # padded logits are dropped after the head
+        embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=dev) * 0.02
+        params["embed"] = embed.to(dtype)
     params["layers"] = [_layer_init(gen, cfg, dtype=dtype, device=dev)
                         for _ in range(cfg.num_layers)]
     if cfg.hybrid_attn_every:
@@ -191,6 +198,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
+def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """The (B, S, d) input of the first layer, in the model's dtype.  Audio:
+    ``batch["embeds"]``.  Otherwise the embedding rows of ``batch["tokens"]``,
+    and for a vision model with ``batch["image_embeds"]`` (B, P, d) those
+    written over positions [0, P), as the reference's
+    ``dynamic_update_slice`` at (0, 0, 0) writes them; an image block larger
+    than the token embeddings in any dimension raises, as it does there."""
+    if cfg.frontend == "audio":
+        return batch["embeds"].to(torch_dtype(cfg))
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        img = batch["image_embeds"]
+        if img.dim() != 3 or any(a > b for a, b in zip(img.shape, x.shape)):
+            raise ValueError(f"image_embeds {tuple(img.shape)} do not fit in the token "
+                             f"embeddings {tuple(x.shape)}")
+        x[:img.shape[0], :img.shape[1], :img.shape[2]] = img.to(x.dtype)
+    return x
+
+
 def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     """Final-normed hidden -> (padded-)vocab logits in f32."""
     if cfg.tie_embeddings:
@@ -278,9 +305,11 @@ def forward(
     """Returns (out, cache).  ``out`` by ``head_mode``: ``"full"`` the
     (B, S, vocab_size) f32 logits, ``"last"`` the (B, vocab_size) logits of
     the last position, ``"none"`` the final-normed (B, S, d) hidden (the
-    loss applies the head itself).  ``batch["tokens"]`` is (B, S) on the
-    params' device; ``cache``, when given, is written in place (K/V at
-    ``cache_pos``; the recurrent state of every lane) and returned."""
+    loss applies the head itself).  ``batch`` holds ``"tokens"`` (B, S), or
+    for an audio model ``"embeds"`` (B, S, d), and for a vision model
+    optionally ``"image_embeds"`` (B, P, d), all on the params' device;
+    ``cache``, when given, is written in place (K/V at ``cache_pos``; the
+    recurrent state of every lane) and returned."""
     out, cache, _ = _forward(cfg, params, batch, cache=cache, cache_pos=cache_pos,
                              head_mode=head_mode)
     return out, cache
@@ -301,8 +330,7 @@ def _forward(
     _check_family(cfg)
     if head_mode not in ("full", "last", "none"):
         raise ValueError(f"head_mode {head_mode!r}: 'full', 'last' or 'none'")
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     aux = _zero_aux(x.device) if cfg.moe is not None else None
 
@@ -402,7 +430,8 @@ def _chunked_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics): the mean next-token cross entropy of
-    ``batch["labels"]`` given ``batch["tokens"]``, both (B, S); for an MoE
+    ``batch["labels"]`` (B, S) given the inputs of ``forward`` (``tokens``,
+    or an audio model's ``embeds``; a vision model's ``image_embeds``); for an MoE
     model plus ``0.01 * load_balance + router_z_loss * router_z``, each
     the per-layer mean, both reported."""
     hidden, _, aux = _forward(cfg, params, batch, head_mode="none")

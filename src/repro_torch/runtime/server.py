@@ -125,8 +125,10 @@ def _percentile(vals: List[float], p: float) -> float:
 
 
 class BatchedServer:
-    """Continuous-batching server over the port's dense, MoE, rwkv6 and
-    zamba2 decoders.
+    """Continuous-batching server over the port's decoders: dense, MoE,
+    rwkv6, zamba2 and the vision model, which it serves on tokens alone, as
+    the reference's does (no ``image_embeds``).  An encoder-only model
+    (hubert) has no autoregressive decode and is refused.
 
     ``params`` must lie on ``device`` (``cuda`` unless the caller passes
     another device; the constructor raises if CUDA is asked for and absent).
@@ -136,6 +138,9 @@ class BatchedServer:
                  device: Union[str, torch.device, None] = "cuda",
                  clock: Callable[[], float] = time.perf_counter):
         self.device = resolve_device(device)
+        if cfg.is_encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: it has no autoregressive decode "
+                             f"to serve")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, server on {self.device}")
         self.cfg, self.params, self.scfg = cfg, params, scfg

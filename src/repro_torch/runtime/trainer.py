@@ -50,8 +50,9 @@ class TrainerConfig:
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss and its gradient with respect to every parameter, then one
-    AdamW step written in place.  ``batch`` holds (B, S) ``tokens`` and
-    ``labels`` on the parameters' device; the metrics are detached 0-dim
+    AdamW step written in place.  ``batch`` holds (B, S) ``labels`` and
+    the inputs of ``loss_fn`` (``tokens``, or an audio model's ``embeds``)
+    on the parameters' device; the metrics are detached 0-dim
     tensors.  The parameters are made to require grad."""
 
     def step(params, opt_state, batch):

@@ -50,6 +50,8 @@ def _randn(card, *shape, dtype, mul=1.0, add=0.0, seed=0):
                                    # the serving widths, decode (4) and prefill (4 x 445) rows
                                    (1780, 2048), (4, 2560), (1780, 2560), (4, 4096),
                                    (1780, 4096), (8, 4, 128),
+                                   # phi-3-vision's and hubert-xlarge's widths
+                                   (4, 3072), (1780, 3072), (4, 1280), (4096, 1280),
                                    (5, 100)])  # d not a multiple of the 16-byte chunk
 def test_rmsnorm_kernel_matches_plain(card, shape, dtype):
     x = _randn(card, *shape, dtype=dtype)
@@ -131,6 +133,15 @@ def test_swiglu_kernel_unaligned(card):
         (1, 4, 4, 71, 71, 80, True),
         (1, 2, 2, 200, 200, 128, True),
         (1, 4, 1, 200, 328, 64, False),
+        # phi-3-vision: hd 96, MHA, at the prompt lengths and past a tile
+        (1, 4, 4, 71, 71, 96, True),
+        (1, 4, 4, 1, 1, 96, True),
+        (2, 32, 32, 200, 200, 96, True),
+        (1, 4, 4, 576, 576, 96, True),
+        (1, 2, 2, 100, 37, 96, False),
+        # hubert-xlarge's encoder: non-causal, 16 heads of 80, ragged frames
+        (1, 16, 16, 781, 781, 80, False),
+        (2, 16, 16, 128, 128, 80, False),
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, T, hd, causal, dtype):
@@ -344,6 +355,24 @@ def _grad_case(card, name, dtype):
 #: tolerances hold them
 GRAD_TOL = {"rmsnorm": TOL, "swiglu": TOL, "flash_attention": FLASH_TOL, "wkv6": WKV6_TOL,
             "mamba2_ssd": {torch.float32: SSD_TOL, torch.bfloat16: SSD_TOL}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_at_head_dim_96(card, causal, dtype):
+    """phi-3-vision's head dim under grad mode: the kernel forward, the
+    plain version's vjp backward."""
+    args = [_randn(card, 1, 4, 71, 96, dtype=dtype, mul=0.5).requires_grad_(True),
+            _randn(card, 1, 4, 71, 96, dtype=dtype, mul=0.5, seed=1).requires_grad_(True),
+            _randn(card, 1, 4, 71, 96, dtype=dtype, seed=2).requires_grad_(True)]
+    before = KERNELS["flash_attention"].launches
+    out = flash_attention(*args, causal=causal)
+    assert KERNELS["flash_attention"].launches == before + 1 and out.grad_fn is not None
+    cot = _randn(card, *out.shape, dtype=dtype, seed=9)
+    grads = torch.autograd.grad(out, args, cot)
+    want = torch.autograd.grad(ref.flash_attention(*args, causal=causal), args, cot)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), **FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -9,7 +9,8 @@ through ``from_jax_params`` to the port.  Batches come from each package's
   absolute), under the reference's ``ref`` backend and once under its
   Pallas kernels in interpret mode, with the loss split into chunks and a
   padded vocabulary, and with per-layer remat; one step of loss and
-  gradient on reduced rwkv6-7b and zamba2-2.7b too.
+  gradient on reduced rwkv6-7b, zamba2-2.7b and phi-3-vision (with an
+  image prefix) too.
 * A 5-step ``Trainer`` run: losses and final parameters within the
   tolerances ``CURVE_LOSS_TOL`` and ``CURVE_PARAM_TOL`` (below).
 * ``adamw_update`` on a random tree (clip, bf16 parameters with an f32
@@ -188,13 +189,31 @@ def test_granite_remat_dots_matches_full_and_reference():
 
 
 def test_loss_refuses_what_is_not_ported():
+    """Every family of the registry is ported; a family outside it raises."""
     cfg = reduced(get_config("granite-3-2b"))
     params = init_params(cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size, seq=8).items()}
-    vlm = reduced(get_config("phi-3-vision-4.2b"))
-    assert vlm.family == "vlm"
-    with pytest.raises(NotImplementedError, match="A13"):
-        loss_fn(vlm, params, batch)
+    with pytest.raises(ValueError, match="unknown family"):
+        loss_fn(dataclasses.replace(cfg, family="diffusion"), params, batch)
+    vlm = dataclasses.replace(reduced(get_config("phi-3-vision-4.2b")), vocab_size=256)
+    vparams = init_params(vlm, device="cpu")
+    assert vlm.family == "vlm" and bool(torch.isfinite(loss_fn(vlm, vparams, batch)[0]))
+
+
+def test_vlm_loss_and_gradients_match_reference():
+    """Reduced phi-3-vision with an image prefix over the first positions,
+    the loss in chunks over a padded vocabulary: the loss and every
+    gradient at 1e-5, the embedding rows under the prefix included."""
+    jcfg, jp, cfg, tp = _models("phi-3-vision-4.2b", WEIGHT_MUL, **LOSS_CFG)
+    batch = dict(_batch(cfg.vocab_size))
+    batch["image_embeds"] = np.random.default_rng(6).normal(
+        size=(2, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jloss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True))(jp)
+    loss, grads = _loss_and_grads(cfg, tp, batch)
+    np.testing.assert_allclose(loss, float(jl), **GRAD_TOL)
+    _assert_trees_close(_ref_layout(grads), _jax_flat(jg), **GRAD_TOL)
 
 
 def test_moe_loss_under_remat_matches_reference():
