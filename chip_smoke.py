@@ -85,6 +85,15 @@ fails:
    to its world; ``[train/resume]``, reduced granite-3-2b in bf16 through
    ``Trainer`` and a ``Checkpointer``: 4 steps, a save, a fresh trainer
    restored from it, 2 more steps, equal bit for bit to 6 unbroken steps;
+   ``[train/dp]`` (``train_dp_phase``), the training launcher ``python -m
+   repro_torch.launch.train`` on full-width granite-3-2b (B 4, S 1024, 3
+   steps), each run a subprocess with a timeout: on one device, as a
+   data-parallel world of one NCCL rank (``--mesh 1,1 --zero1 explicit``,
+   every gradient leaf through the context-planned reduce-scatter), and
+   the same with ``--verify-collectives --fault-step 1``; each run's step
+   times, peak memory, ``[train/comms]`` lines and launches (asserted per
+   step), and the three runs' losses equal step for step (bit for bit
+   expected; else within ``TRAIN_LOSS_TOL``, with the reason printed);
 6. comms: the collective executors of ``repro_torch.comms``.
    ``[comms/card]``, an NCCL world of one rank on the card (one H100 holds
    one NCCL rank; the phase says so in a line of its own): ag, rs, ar and
@@ -175,9 +184,12 @@ fails:
    leaves after the last, step time and peak memory.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
-over the 6 training steps of ``[train/granite]``, the four serves of
-phase 8, the two cluster replays of phase 9 and, of phase 10, the gated
-prefill, the serve, the gated encoder forward and the 3 training steps,
+over the 6 training steps of ``[train/granite]``, the 9 steps of
+``[train/dp]``'s three launcher runs (each counted by the launcher from 0
+just before its steps and reported in its ``[train/summary]`` line), the
+four serves of phase 8, the two cluster replays of phase 9 and, of phase
+10, the gated prefill, the serve, the gated encoder forward and the 3
+training steps,
 each counted from 0 just before it; ``max_abs_err`` the largest of phase
 2's checks; the times from phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
@@ -1125,6 +1137,81 @@ def train_resume_phase(cfg, dev):
     check(all(math.isfinite(x) for x in got), "[train/resume] non-finite loss")
 
 
+#: [train/dp]: the launcher's runs, each a subprocess; full-width granite-3-2b
+TRAIN_DP = dict(seq=1024, batch=4, steps=3, timeout_s=420)
+TRAIN_DP_RUNS = {
+    "one-device": [],
+    "mesh": ["--mesh", "1,1", "--zero1", "explicit"],
+    "verified": ["--mesh", "1,1", "--zero1", "explicit", "--verify-collectives",
+                 "--fault-step", "1"],
+}
+
+
+def train_dp_phase(cfg, card):
+    """[train/dp]: ``python -m repro_torch.launch.train`` on full-width,
+    full-depth granite-3-2b (B 4, S 1024, 3 steps, no checkpoint) three
+    ways: on one device, as a data-parallel world of one NCCL rank (``--mesh
+    1,1 --zero1 explicit``: the OpTree-planned reduce-scatter of every
+    gradient leaf; one rank gathers nothing back), and the same with
+    ``--verify-collectives --fault-step 1``.  Each run is a subprocess with
+    a timeout; its ``[train/comms]`` lines are echoed.  Gates: each run's
+    losses finite and its launches 161 rmsnorm, 80 SwiGLU and 80 flash
+    attention a step (B1-B3 on the card, no plain version); the three runs'
+    losses equal step for step, bit for bit expected on one rank, else
+    within ``TRAIN_LOSS_TOL`` with the reason printed.  Prints each run's
+    step times and peak memory beside the card's name and power limit.
+    Returns the kernel launches summed over the three runs."""
+    from repro_torch.kernels import KERNELS
+
+    L = cfg.num_layers
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name,
+            "--seq", str(TRAIN_DP["seq"]), "--batch", str(TRAIN_DP["batch"]),
+            "--steps", str(TRAIN_DP["steps"]), "--log-every", "1", "--ckpt-interval", "0"]
+    total = {n: 0 for n in KERNELS}
+    summaries = {}
+    for name, extra in TRAIN_DP_RUNS.items():
+        tag = f"[train/dp {name}]"
+        t0 = time.perf_counter()
+        lines = run_group(base + extra, TRAIN_DP["timeout_s"], tag)
+        (line,) = [ln for ln in lines if ln.startswith("[train/summary] ")]
+        s = json.loads(line[len("[train/summary] "):])
+        summaries[name] = s
+        steps = TRAIN_DP["steps"]
+        print(f"{tag} {' '.join(extra) or '(no --mesh)'}: {s['ranks']} rank(s); step times "
+              f"{[round(t, 4) for t in s['step_s']]} s (steady {min(s['step_s'][1:]):.4f} s); "
+              f"peak max_memory_allocated {s['peak_bytes'] / 2**30:.2f} GiB; losses "
+              f"{s['losses']}; launches {s['launches']}; run {time.perf_counter() - t0:.1f} s "
+              f"on {card}", flush=True)
+        check(len(s["losses"]) == steps and all(math.isfinite(x) for x in s["losses"]),
+              f"{tag} losses {s['losses']}")
+        want = {n: steps * c for n, c in per_step.items()}
+        check(s["launches"] == want, f"{tag} launches {s['launches']} != {want}")
+        if "--verify-collectives" in extra:
+            check(any(ln.startswith("[train/fault] step 1:") for ln in lines),
+                  f"{tag} no [train/fault] line")
+        if extra:
+            check(any(ln.startswith("[train/comms-json] ") for ln in lines),
+                  f"{tag} no [train/comms-json] line")
+        for n in KERNELS:
+            total[n] += s["launches"][n]
+    want = summaries["one-device"]["losses"]
+    for name in ("mesh", "verified"):
+        got = summaries[name]["losses"]
+        if got == want:
+            print(f"[train/dp] {name}: losses equal the one-device run's bit for bit")
+            continue
+        rtol, atol = TRAIN_LOSS_TOL
+        close = all(abs(g - w) <= atol + rtol * abs(w) for g, w in zip(got, want))
+        print(f"[train/dp] {name}: losses differ from the one-device run's by up to "
+              f"{max(abs(g - w) for g, w in zip(got, want)):.3e} though one rank's "
+              f"reduce-scatter returns its input: a kernel or library call is not "
+              f"deterministic; within TRAIN_LOSS_TOL {TRAIN_LOSS_TOL}: {close}")
+        check(close, f"[train/dp] {name}: losses {got} != {want}")
+    return total
+
+
 def serve_phase(name, cfg, dev, per_forward):
     """Serve ``SERVE["requests"]`` requests on ``cfg`` (bf16, random weights
     from seed 0); ``per_forward(L, is_prefill)`` gives each kernel's
@@ -1882,6 +1969,7 @@ def main() -> int:
     plan_phase(grad_bytes)
     train_resume_phase(cfg, dev)
     torch.cuda.empty_cache()
+    trained_dp = train_dp_phase(cfg, card)
 
     # ---- 6. the collective executors: one NCCL rank, 8 gloo ranks ----------
     comms_card_phase(dev)
@@ -1938,7 +2026,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
-            "launches": (trained[name] + granite[name] + rwkv6[name] + zamba2[name]
+            "launches": (trained[name] + trained_dp[name] + granite[name] + rwkv6[name]
+                         + zamba2[name]
                          + llama4[name] + cluster[name] + vlm_prefill[name] + phi3v[name]
                          + encoded[name] + audio_trained[name]),
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],

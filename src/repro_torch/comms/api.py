@@ -71,6 +71,7 @@ __all__ = [
     "CommContext",
     "comm_context",
     "current_context",
+    "use_context",
     "legacy_chunks",
     "links_fingerprint",
     "all_gather",
@@ -857,6 +858,19 @@ def comm_context(
         base_policy = base_policy.merged(**policy_overrides)
     ctx = CommContext(mesh, axis_names, links=links, policy=base_policy,
                       axis_sizes=axis_sizes, health=health)
+    _stack().append(ctx)
+    try:
+        yield ctx
+    finally:
+        _stack().pop()
+
+
+@contextlib.contextmanager
+def use_context(ctx: CommContext):
+    """Install the existing context ``ctx`` for the dynamic extent of the
+    block (``comm_context`` makes a new one): code that resolves the
+    innermost context, such as the MoE block's expert all-to-all, then
+    shares ``ctx``'s plan cache."""
     _stack().append(ctx)
     try:
         yield ctx

@@ -62,18 +62,14 @@ import argparse
 import dataclasses
 import json
 import math
-import multiprocessing as mp
-import os
 import sys
-import tempfile
 import time
-import traceback
 from pathlib import Path
 from typing import List, Optional
 
+from repro_torch.launch.world import WORLD_TIMEOUT_S, run_world
+
 MODES = ("oneshot", "chunked", "perhop", "hybrid")
-#: a world whose ranks hang is killed after this long
-WORLD_TIMEOUT_S = 1200.0
 
 
 def _bench_setup(factors, links_path=None, order=None, optical_w=None):
@@ -384,56 +380,6 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
     return rows
 
 
-def _rank_main(rank, world, store, device, section, kwargs):
-    """One rank of the benchmark world."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.comms import init_world
-
-    if device == "cpu":
-        torch.set_num_threads(1)
-    try:
-        dev = init_world(device, world_size=world, rank=rank, store_path=store)
-        {"collectives": collectives_bench, "tp_block": tp_block_bench}[section](dev, **kwargs)
-        dist.barrier()
-    except BaseException:
-        traceback.print_exc()
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(1)  # do not wait on peers that will never answer
-    dist.destroy_process_group()
-
-
-def run_world(world, device, section, kwargs, timeout_s=WORLD_TIMEOUT_S):
-    """Spawn ``world`` ranks running ``section``, wait at most ``timeout_s``
-    and kill whatever is left; raise unless every rank exited 0."""
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, os.path.join(tmp, "store"), device,
-                                   section, kwargs))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout_s
-        try:
-            for p in procs:
-                p.join(max(0.0, deadline - time.monotonic()))
-                if p.exitcode not in (None, 0):
-                    break
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-            for p in procs:
-                p.join(5)
-    codes = [p.exitcode for p in procs]
-    if any(c != 0 for c in codes):
-        raise RuntimeError(f"perf --{section.replace('_', '-')}: rank exit codes {codes} "
-                           f"(None: killed after {timeout_s} s)")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     section = ap.add_mutually_exclusive_group(required=True)
@@ -465,17 +411,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     world = math.prod(factors)
     dev = check_world_device(args.device, world)
     if args.collectives:
-        section = "collectives"
+        target, name = collectives_bench, "perf --collectives"
         kwargs = dict(factors=factors, sizes_kb=sizes_kb, reps=args.reps,
                       links_path=args.links, order=args.order,
                       optical_w=args.optical_w, bench_json=args.bench_json)
     else:
         if args.seq % world:
             ap.error(f"--seq {args.seq} must split over the {world} ranks (SP)")
-        section = "tp_block"
+        target, name = tp_block_bench, "perf --tp-block"
         kwargs = dict(factors=factors, reps=args.reps, links_path=args.links,
                       seq=args.seq, batch=args.batch)
-    run_world(world, dev.type, section, kwargs, args.timeout)
+    run_world(world, dev.type, target, kwargs, args.timeout, name)
     return 0
 
 

@@ -1,8 +1,9 @@
 """Optimizer of the port (the counterpart of ``repro.optim``).
 
 ``zero1`` holds the explicit ZeRO-1 gradient sharding over a data-parallel
-world (ROADMAP A6); the sharding specs (``opt_state_specs``) come with the
-data-parallel training loop (ROADMAP A12)."""
+world, which ``runtime.make_dp_train_step`` runs every step; the sharding
+specs (``opt_state_specs``) come with the DTensor placements (ROADMAP
+A12c)."""
 from .adamw import (  # noqa: F401
     OptimizerConfig,
     adamw_init,

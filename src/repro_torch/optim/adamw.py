@@ -12,8 +12,8 @@ Where JAX donates buffers, the port updates in place: ``adamw_update``
 writes the parameters, the moments and the master copy under
 ``torch.no_grad()`` and returns the same containers.  The norm is summed
 leaf by leaf in f32, so no f32 copy of the whole gradient tree is made.
-The sharding specs of the reference (``opt_state_specs``) wait for the
-collectives port.
+The sharding specs of the reference (``opt_state_specs``) come with the
+DTensor placements (ROADMAP A12c).
 """
 from __future__ import annotations
 

@@ -44,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.comms, repro_torch.comms.api, repro_torch.launch.perf, "
             "repro_torch.comms.decode_attention, repro_torch.comms.collective_matmul, "
             "repro_torch.optim.zero1, repro_torch.models.moe, repro_torch.cluster, "
-            "repro_torch.launch.roofline\n"
+            "repro_torch.launch.roofline, repro_torch.launch.world, "
+            "repro_torch.models.sharding\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
