@@ -181,7 +181,21 @@ fails:
    ``[train/hubert]``, hubert-xlarge trained 3 steps (bf16 parameters, f32
    master, m and v, remat on, B 4, S 1024, seeded frame embeddings and
    labels): finite losses, 193 rmsnorm and 96 flash launches a step, bf16
-   leaves after the last, step time and peak memory.
+   leaves after the last, step time and peak memory;
+11. perf: ``python -m repro_torch.launch.perf``'s sections in turn, each a
+   subprocess with a timeout, printing their times: ``[perf/moe]``, ``--moe
+   1 --device cuda --reps 5`` (an NCCL world of one rank, reduced
+   llama4-scout and arctic in f32): both blocks within the reference's
+   tolerance of the all-experts-local block, an all-to-all plan issued,
+   SwiGLU launched as the calls predict; ``[perf/faults]`` and
+   ``[perf/reconfig]``, the modeled sections; ``[perf/calibrate]``,
+   ``--collectives 2,4 --calibrate`` on 8 gloo ranks of the host (one card
+   holds one NCCL rank), then ``--collectives 2,4 --links`` with the fitted
+   file, bit-identical rows; and ``[perf/cluster]``, ``--cluster --device
+   cuda --policies round-robin,greedy --cluster-requests 64``: the
+   simulated gate and the reference's measured one (greedy beats
+   round-robin on p99, simulated and measured, on two live 32-wide granite
+   replicas of 2 and 24 layers), B1-B3 launched.
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the 6 training steps of ``[train/granite]``, the 9 steps of
@@ -189,7 +203,9 @@ over the 6 training steps of ``[train/granite]``, the 9 steps of
 just before its steps and reported in its ``[train/summary]`` line), the
 four serves of phase 8, the two cluster replays of phase 9 and, of phase
 10, the gated prefill, the serve, the gated encoder forward and the 3
-training steps,
+training steps, and of phase 11 the ``--moe`` and ``--cluster`` runs (each
+a fresh process, counted from its start and reported in its
+``[perf/kernels]`` line),
 each counted from 0 just before it; ``max_abs_err`` the largest of phase
 2's checks; the times from phase 3: ``ms`` and ``library_ms`` per call, ``device_ms`` and
 ``library_device_ms`` from the graph replay), the card's name and power limit as ``nvidia-smi --query-gpu=name,
@@ -1409,6 +1425,146 @@ def cluster_card_phase(cfg, dev):
     return total
 
 
+#: [perf/*]: the benchmark sections of ``launch.perf``, each a subprocess
+PERF_BASE = [sys.executable, "-m", "repro_torch.launch.perf"]
+PERF_MOE_REPS = 5
+#: the measured cluster replays the gated pair of policies (of the four the
+#: simulated sweep also runs by default) over 64 requests, not the default
+#: 16: the p99 of 16 is nearly their maximum, so one request that greedy
+#: sends to the slow replica would decide the gate
+PERF_CLUSTER_POLICIES = "round-robin,greedy"
+PERF_CLUSTER_REQUESTS = 64
+PERF_CALIBRATE = dict(sizes_kb="64,1024,4096", reps=3)
+
+
+def _perf_launches(lines, tag):
+    """The kernel launches of a ``launch.perf`` run, from its
+    ``[perf/kernels]`` line."""
+    from repro_torch.kernels import KERNELS
+
+    (line,) = [ln for ln in lines if ln.startswith("[perf/kernels] ")]
+    got = dict(kv.split("=") for kv in line[len("[perf/kernels] "):].split())
+    check(sorted(got) == sorted(KERNELS), f"{tag} kernels line {line}")
+    return {n: int(got[n]) for n in KERNELS}
+
+
+def perf_moe_phase():
+    """[perf/moe]: ``--moe 1`` on the card, one NCCL rank, both reduced MoE
+    archs in f32: each block within the reference's tolerance of the
+    all-experts-local block, an all-to-all plan issued, SwiGLU launched once
+    a block for the routed experts and once for the shared expert or the
+    dense residual.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+
+    t0 = time.perf_counter()
+    lines = run_group(PERF_BASE + ["--moe", "1", "--device", "cuda", "--reps",
+                                   str(PERF_MOE_REPS), "--timeout", "240"], 300, "[perf/moe]")
+    rows = [ln for ln in lines if ln.startswith("[perf/moe] ") and " mesh=" in ln]
+    archs = ("llama4-scout-17b-a16e", "arctic-480b")
+    check(len(rows) == len(archs) and all("allclose=True" in r for r in rows),
+          f"[perf/moe] rows {rows}")
+    check(all("(a2a=0)" not in r for r in rows), "[perf/moe] no all-to-all plan issued")
+    launches = _perf_launches(lines, "[perf/moe]")
+    # each arch: the local block, the checked EP block, and 1 + reps timed calls of each
+    calls = 2 + 2 * (1 + PERF_MOE_REPS)
+    want = {n: 0 for n in KERNELS}
+    for arch in archs:
+        moe = get_config(arch).moe
+        want["swiglu"] += calls * (1 + moe.shared_expert + moe.dense_residual)
+    check(launches == want, f"[perf/moe] launches {launches} != {want}")
+    print(f"[perf/moe] one NCCL rank, both archs: allclose, an all-to-all plan each; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def perf_cluster_phase():
+    """[perf/cluster]: ``--cluster`` on the card: the simulated gate, and the
+    reference's measured one on two live 32-wide replicas (greedy beats
+    round-robin on p99, simulated and measured), B1-B3 launched.  Returns
+    the launches."""
+    t0 = time.perf_counter()
+    lines = run_group(PERF_BASE + ["--cluster", "--device", "cuda", "--policies",
+                                   PERF_CLUSTER_POLICIES, "--cluster-requests",
+                                   str(PERF_CLUSTER_REQUESTS)], 300, "[perf/cluster]")
+    check(any(ln.startswith("[perf/cluster] sim: cost-model policies beat round-robin")
+              for ln in lines), "[perf/cluster] no simulated verdict")
+    check(any(ln.startswith("[perf/cluster] measured: policy ordering matches") for ln in lines),
+          "[perf/cluster] no measured verdict")
+    measured = [ln for ln in lines if ln.startswith("[perf/cluster] measured ")
+                and "meas_p99=" in ln]
+    check(len(measured) == len(PERF_CLUSTER_POLICIES.split(",")),
+          f"[perf/cluster] measured rows {measured}")
+    launches = _perf_launches(lines, "[perf/cluster]")
+    check(all(launches[n] > 0 for n in ("rmsnorm", "swiglu", "flash_attention"))
+          and launches["wkv6"] == launches["mamba2_ssd"] == 0,
+          f"[perf/cluster] launches {launches}")
+    print(f"[perf/cluster] on the card: greedy beats round-robin on p99, simulated and "
+          f"measured; launches {launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def perf_modeled_phase():
+    """[perf/faults] and [perf/reconfig]: the modeled sections (no device)."""
+    t0 = time.perf_counter()
+    lines = run_group(PERF_BASE + ["--faults", "2,4", "--sizes-kb", "64,1024"], 120,
+                      "[perf/faults]")
+    rows = [ln for ln in lines if ln.startswith("[perf/faults] ") and "replanned mode=" in ln]
+    check(lines[0].startswith("[perf/faults] modeled prices only, no device work")
+          and len(rows) == 8, f"[perf/faults] {len(rows)} rows, want 8")
+    print(f"[perf/faults] {len(rows)} rows; {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lines = run_group(PERF_BASE + ["--reconfig"], 120, "[perf/reconfig]")
+    check(any(ln.startswith("[perf/reconfig] hold-vs-reconfigure flip") for ln in lines),
+          "[perf/reconfig] no flip")
+    print(f"[perf/reconfig] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def perf_calibrate_phase():
+    """[perf/calibrate]: ``--collectives 2,4 --calibrate`` on 8 gloo ranks
+    of the host (one card holds one NCCL rank, not eight), then
+    ``--collectives 2,4 --links`` re-planned with the fitted file, its rows
+    bit-identical to the flat collective."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print("[perf/calibrate] one H100 holds one NCCL rank, not eight: the calibration and "
+          "the re-planned collectives run on 8 gloo ranks of the host", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        links = str(Path(tmp) / "links.json")
+        run_group(PERF_BASE + ["--collectives", "2,4", "--calibrate", "--sizes-kb",
+                               PERF_CALIBRATE["sizes_kb"], "--reps", str(PERF_CALIBRATE["reps"]),
+                               "--links", links, "--device", "cpu", "--timeout", "240"],
+                  300, "[perf/calibrate]")
+        fitted = json.loads(Path(links).read_text())["fitted_links"]
+        check(sorted(fitted) == ["s0", "s1"], f"[perf/calibrate] fitted {sorted(fitted)}")
+        t_fit = time.perf_counter() - t0
+        lines = run_group(PERF_BASE + ["--collectives", "2,4", "--sizes-kb", "64", "--reps", "1",
+                                       "--links", links, "--device", "cpu", "--timeout", "240"],
+                          300, "[perf/calibrate]")
+    rows = [ln for ln in lines if ln.startswith("[perf/collectives] ") and "KB mesh=" in ln]
+    check(any(ln.startswith("[perf/collectives] using fitted links") for ln in lines)
+          and len(rows) == 3 and all(ln.endswith("bit-identical") for ln in rows),
+          f"[perf/calibrate] re-planned rows {rows}")
+    fits = ", ".join(f"{k}: B={v['bandwidth_bytes']} alpha={v['alpha_s']:.3g}"
+                     for k, v in fitted.items())
+    print(f"[perf/calibrate] fitted {fits} in {t_fit:.1f} s; re-planned collectives "
+          f"bit-identical; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def perf_phases():
+    """``python -m repro_torch.launch.perf``'s sections in turn, each a
+    subprocess with a timeout.  Returns the launches of the moe and cluster
+    runs, summed."""
+    t0 = time.perf_counter()
+    moe = perf_moe_phase()
+    perf_modeled_phase()
+    perf_calibrate_phase()
+    cluster = perf_cluster_phase()
+    print(f"[perf] the five sections in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: moe[n] + cluster[n] for n in moe}
+
+
 def prefill_vlm_phase(vcfg, dev):
     """[prefill/phi3v]: full phi-3-vision-4.2b (bf16, random weights from
     seed 0) prefills B 4, S 1024 into a decode state: the image prefix
@@ -1583,6 +1739,21 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg):
         sc = randn(d, dtype=dtype, mul=0.1, add=1.0)
         compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps), ref.rmsnorm(x, sc, cfg.norm_eps),
                 dtype, f"({B * 445},{d}) view at an odd element offset")
+        # launch.perf --cluster's replicas (d 32, d_ff 64 and 512, 2 slots:
+        # decode rows 2, prefill rows 2 x 8) and --moe's reduced experts
+        # (f 128: the EP buffer, the local block's, the shared expert's)
+        for rows in (2, 16):
+            x = randn(rows, 32, dtype=dtype)
+            sc = randn(32, dtype=dtype, mul=0.1, add=1.0)
+            compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps),
+                    ref.rmsnorm(x, sc, cfg.norm_eps), dtype, f"cluster replica ({rows},32)")
+            for f in (64, 512):
+                g, u = randn(rows, f, dtype=dtype), randn(rows, f, dtype=dtype)
+                compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype,
+                        f"cluster replica ({rows},{f})")
+        for shape in ((16, 4, 1, 128), (4, 16, 128), (16, 128)):
+            g, u = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"perf --moe {shape}")
         cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
         # the serves' prompt lengths 71 and 445 and short tiles, at granite's
         # GQA rep 4; zamba2's hd 80 at 71; hd 128
@@ -1590,6 +1761,7 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg):
         cases += [(B, zH, zH, 71, 71, zhd, True), (1, 4, 2, 200, 200, 128, True)]
         cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
         cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
+        cases += [(2, 2, 2, 8, 8, 16, True)]  # launch.perf --cluster's replicas' prefill
         cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
         cases += [(TRAIN["batch"], H, Hkv, TRAIN["seq"], TRAIN["seq"], hd, True)]  # training
         # llama4-scout's prefill: H 40, Hkv 8 (GQA rep 5), hd 128, at the
@@ -2017,6 +2189,10 @@ def main() -> int:
     audio_trained, _ = train_full_phase(
         "hubert", acfg, dev, [spec_batch(acfg, AUDIO["batch"], AUDIO["seq"], "train", seed=s)
                               for s in range(AUDIO["train_steps"])])
+    torch.cuda.empty_cache()
+
+    # ---- 11. launch.perf's benchmark sections --------------------------------
+    perf = perf_phases()
 
     # ---- result --------------------------------------------------------------
     kernels = []
@@ -2029,7 +2205,7 @@ def main() -> int:
             "launches": (trained[name] + trained_dp[name] + granite[name] + rwkv6[name]
                          + zamba2[name]
                          + llama4[name] + cluster[name] + vlm_prefill[name] + phi3v[name]
-                         + encoded[name] + audio_trained[name]),
+                         + encoded[name] + audio_trained[name] + perf[name]),
             "max_abs_err": max_err[name], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
