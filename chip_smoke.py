@@ -38,7 +38,15 @@ fails:
    16-byte boundary).  Then ``[check/grad]``: each wrapper under grad mode
    (flash attention at hd 64 and 96), whose output must carry a
    ``grad_fn`` and whose input gradients (the plain version's vjp) must
-   match the plain version's own autograd;
+   match the plain version's own autograd.  Then ``[spec/kernels]``: each
+   of the five wrappers on DTensors over a one-rank NCCL ``DeviceMesh``
+   (split over batch and heads or rows, at the check's first prompt
+   length), its output equal bit for bit to the plain-tensor call's and its
+   launch counter moved by exactly one; and ``[spec/grad]`` on that mesh:
+   the loss and every gradient leaf of a 2-layer, full-width f32 granite
+   at B 4, S 1024 placed by the spec path, against the plain tensors',
+   within ``TRAIN_LOSS_TOL`` and ``TRAIN_LEAF_RTOL``, B1-B3 launched as a
+   step does;
 3. time: each kernel, its plain version, and one PyTorch call computing the
    same function (``library_ms``; the port never calls it; none exists for
    WKV6 or the SSD scan), with CUDA events at the largest serving shape:
@@ -94,6 +102,14 @@ fails:
    times, peak memory, ``[train/comms]`` lines and launches (asserted per
    step), and the three runs' losses equal step for step (bit for bit
    expected; else within ``TRAIN_LOSS_TOL``, with the reason printed);
+   ``[train/spec]`` (``train_spec_phase``), the same launcher with ``--mesh
+   1,1 --zero1 spec``: parameters, ZeRO-1 optimizer state and batch as
+   DTensors on a one-rank NCCL ``DeviceMesh``, B1-B3 on each rank's shard;
+   its step times and peak memory, launches asserted per step (161, 80,
+   80), and its losses equal to the one-device run's (bit for bit, else
+   within ``TRAIN_LOSS_TOL`` with the reason printed; past step 1 this
+   tests only the order of summation, as training is chaotic there, and
+   ``[spec/grad]`` is the gate on the gradients);
 6. comms: the collective executors of ``repro_torch.comms``.
    ``[comms/card]``, an NCCL world of one rank on the card (one H100 holds
    one NCCL rank; the phase says so in a line of its own): ag, rs, ar and
@@ -187,7 +203,14 @@ fails:
    1 --device cuda --reps 5`` (an NCCL world of one rank, reduced
    llama4-scout and arctic in f32): both blocks within the reference's
    tolerance of the all-experts-local block, an all-to-all plan issued,
-   SwiGLU launched as the calls predict; ``[perf/faults]`` and
+   SwiGLU launched as the calls predict, and each row's GSPMD contrast
+   (``measured_gspmd_us``: the block on DTensors, experts replicated)
+   measured; ``[perf/tp-block]``, ``--tp-block 1 --device cuda``: the
+   explicit TP and SP blocks allclose to the unsharded one, each row's GSPMD
+   contrast (the block on the layer placed by ``tp_block_specs`` as
+   DTensors) measured, B1-B3 launched exactly once a block (their shapes,
+   d 8 over 64 rows, d_ff 16 and one head of 16 at S 32, are in phase 2's
+   checks); ``[perf/faults]`` and
    ``[perf/reconfig]``, the modeled sections; ``[perf/calibrate]``,
    ``--collectives 2,4 --calibrate`` on 8 gloo ranks of the host (one card
    holds one NCCL rank), then ``--collectives 2,4 --links`` with the fitted
@@ -199,11 +222,11 @@ fails:
 
 The last lines are the ``{"kernels": [...]}`` line (``launches`` summed
 over the 6 training steps of ``[train/granite]``, the 9 steps of
-``[train/dp]``'s three launcher runs (each counted by the launcher from 0
+``[train/dp]``'s three launcher runs and the 3 of ``[train/spec]`` (each counted by the launcher from 0
 just before its steps and reported in its ``[train/summary]`` line), the
 four serves of phase 8, the two cluster replays of phase 9 and, of phase
 10, the gated prefill, the serve, the gated encoder forward and the 3
-training steps, and of phase 11 the ``--moe`` and ``--cluster`` runs (each
+training steps, and of phase 11 the ``--moe``, ``--tp-block`` and ``--cluster`` runs (each
 a fresh process, counted from its start and reported in its
 ``[perf/kernels]`` line),
 each counted from 0 just before it; ``max_abs_err`` the largest of phase
@@ -1163,47 +1186,74 @@ TRAIN_DP_RUNS = {
 }
 
 
+def _launcher_run(cfg, tag, extra, card):
+    """One run of ``python -m repro_torch.launch.train`` on full-width,
+    full-depth ``cfg`` (``TRAIN_DP``'s B, S and steps, no checkpoint) with
+    the arguments ``extra``, a subprocess with a timeout.  Prints its step
+    times and peak memory beside the card's name and power limit; fails
+    unless its losses are finite and its launches are 161 rmsnorm, 80
+    SwiGLU and 80 flash attention a step.  Returns its ``[train/summary]``
+    and its output lines."""
+    from repro_torch.kernels import KERNELS
+
+    L = cfg.num_layers
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    steps = TRAIN_DP["steps"]
+    t0 = time.perf_counter()
+    lines = run_group([sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name,
+                       "--seq", str(TRAIN_DP["seq"]), "--batch", str(TRAIN_DP["batch"]),
+                       "--steps", str(steps), "--log-every", "1", "--ckpt-interval", "0"]
+                      + extra, TRAIN_DP["timeout_s"], tag)
+    (line,) = [ln for ln in lines if ln.startswith("[train/summary] ")]
+    s = json.loads(line[len("[train/summary] "):])
+    print(f"{tag} {' '.join(extra) or '(no --mesh)'}: {s['ranks']} rank(s); step times "
+          f"{[round(t, 4) for t in s['step_s']]} s (steady {min(s['step_s'][1:]):.4f} s); "
+          f"peak max_memory_allocated {s['peak_bytes'] / 2**30:.2f} GiB; losses "
+          f"{s['losses']}; launches {s['launches']}; run {time.perf_counter() - t0:.1f} s "
+          f"on {card}", flush=True)
+    check(len(s["losses"]) == steps and all(math.isfinite(x) for x in s["losses"]),
+          f"{tag} losses {s['losses']}")
+    want = {n: steps * c for n, c in per_step.items()}
+    check(s["launches"] == want, f"{tag} launches {s['launches']} != {want}")
+    return s, lines
+
+
+def _same_losses(tag, got, want, why):
+    """``got`` equal to ``want`` bit for bit, or within ``TRAIN_LOSS_TOL``
+    with ``why`` they may differ printed."""
+    if got == want:
+        print(f"{tag} losses equal the one-device run's bit for bit")
+        return
+    rtol, atol = TRAIN_LOSS_TOL
+    close = all(abs(g - w) <= atol + rtol * abs(w) for g, w in zip(got, want))
+    print(f"{tag} losses differ from the one-device run's by up to "
+          f"{max(abs(g - w) for g, w in zip(got, want)):.3e} though {why}; within "
+          f"TRAIN_LOSS_TOL {TRAIN_LOSS_TOL}: {close}")
+    check(close, f"{tag} losses {got} != {want}")
+
+
 def train_dp_phase(cfg, card):
     """[train/dp]: ``python -m repro_torch.launch.train`` on full-width,
     full-depth granite-3-2b (B 4, S 1024, 3 steps, no checkpoint) three
     ways: on one device, as a data-parallel world of one NCCL rank (``--mesh
     1,1 --zero1 explicit``: the OpTree-planned reduce-scatter of every
     gradient leaf; one rank gathers nothing back), and the same with
-    ``--verify-collectives --fault-step 1``.  Each run is a subprocess with
-    a timeout; its ``[train/comms]`` lines are echoed.  Gates: each run's
-    losses finite and its launches 161 rmsnorm, 80 SwiGLU and 80 flash
-    attention a step (B1-B3 on the card, no plain version); the three runs'
-    losses equal step for step, bit for bit expected on one rank, else
-    within ``TRAIN_LOSS_TOL`` with the reason printed.  Prints each run's
-    step times and peak memory beside the card's name and power limit.
-    Returns the kernel launches summed over the three runs."""
+    ``--verify-collectives --fault-step 1`` (``_launcher_run`` each; their
+    ``[train/comms]`` lines are echoed).  Gates: each run's losses finite
+    and its launches 161 rmsnorm, 80 SwiGLU and 80 flash attention a step
+    (B1-B3 on the card, no plain version); the three runs' losses equal
+    step for step, bit for bit expected on one rank, else within
+    ``TRAIN_LOSS_TOL`` with the reason printed.  Returns the kernel
+    launches summed over the three runs, and the one-device run's losses."""
     from repro_torch.kernels import KERNELS
 
-    L = cfg.num_layers
-    per_step = {n: 0 for n in KERNELS}
-    per_step.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name,
-            "--seq", str(TRAIN_DP["seq"]), "--batch", str(TRAIN_DP["batch"]),
-            "--steps", str(TRAIN_DP["steps"]), "--log-every", "1", "--ckpt-interval", "0"]
     total = {n: 0 for n in KERNELS}
     summaries = {}
     for name, extra in TRAIN_DP_RUNS.items():
         tag = f"[train/dp {name}]"
-        t0 = time.perf_counter()
-        lines = run_group(base + extra, TRAIN_DP["timeout_s"], tag)
-        (line,) = [ln for ln in lines if ln.startswith("[train/summary] ")]
-        s = json.loads(line[len("[train/summary] "):])
+        s, lines = _launcher_run(cfg, tag, extra, card)
         summaries[name] = s
-        steps = TRAIN_DP["steps"]
-        print(f"{tag} {' '.join(extra) or '(no --mesh)'}: {s['ranks']} rank(s); step times "
-              f"{[round(t, 4) for t in s['step_s']]} s (steady {min(s['step_s'][1:]):.4f} s); "
-              f"peak max_memory_allocated {s['peak_bytes'] / 2**30:.2f} GiB; losses "
-              f"{s['losses']}; launches {s['launches']}; run {time.perf_counter() - t0:.1f} s "
-              f"on {card}", flush=True)
-        check(len(s["losses"]) == steps and all(math.isfinite(x) for x in s["losses"]),
-              f"{tag} losses {s['losses']}")
-        want = {n: steps * c for n, c in per_step.items()}
-        check(s["launches"] == want, f"{tag} launches {s['launches']} != {want}")
         if "--verify-collectives" in extra:
             check(any(ln.startswith("[train/fault] step 1:") for ln in lines),
                   f"{tag} no [train/fault] line")
@@ -1213,19 +1263,193 @@ def train_dp_phase(cfg, card):
         for n in KERNELS:
             total[n] += s["launches"][n]
     want = summaries["one-device"]["losses"]
-    for name in ("mesh", "verified"):
-        got = summaries[name]["losses"]
-        if got == want:
-            print(f"[train/dp] {name}: losses equal the one-device run's bit for bit")
-            continue
-        rtol, atol = TRAIN_LOSS_TOL
-        close = all(abs(g - w) <= atol + rtol * abs(w) for g, w in zip(got, want))
-        print(f"[train/dp] {name}: losses differ from the one-device run's by up to "
-              f"{max(abs(g - w) for g, w in zip(got, want)):.3e} though one rank's "
-              f"reduce-scatter returns its input: a kernel or library call is not "
-              f"deterministic; within TRAIN_LOSS_TOL {TRAIN_LOSS_TOL}: {close}")
-        check(close, f"[train/dp] {name}: losses {got} != {want}")
-    return total
+    for name in [n for n in summaries if n != "one-device"]:
+        _same_losses(f"[train/dp] {name}:", summaries[name]["losses"], want,
+                     "one rank's reduce-scatter returns its input: a kernel or library "
+                     "call is not deterministic")
+    return total, want
+
+
+#: [train/spec]: the spec path of the launcher on one NCCL rank
+TRAIN_SPEC = ["--mesh", "1,1", "--zero1", "spec"]
+
+
+def train_spec_phase(cfg, card, one_device_losses):
+    """[train/spec]: ``python -m repro_torch.launch.train --mesh 1,1
+    --zero1 spec`` (``_launcher_run``): parameters, ZeRO-1 optimizer state
+    and batch placed as DTensors on a one-rank NCCL ``DeviceMesh``, the step
+    in global semantics, the kernels on the rank's shard.  Gates: those of
+    ``_launcher_run``, and the losses equal to ``[train/dp]``'s one-device
+    run's, bit for bit or within ``TRAIN_LOSS_TOL`` with the reason
+    printed.  Past step 1 that gate tests only the order of summation:
+    training full-depth bf16 granite is chaotic by then, so any reordered
+    sum moves the loss by more than the tolerance.  ``[spec/grad]`` holds
+    the step's gradients within a tolerance no such order can break.
+    Returns its launches."""
+    s, lines = _launcher_run(cfg, "[train/spec]", TRAIN_SPEC, card)
+    check(any(ln.endswith("zero1=spec") for ln in lines), "[train/spec] no spec mesh line")
+    print("[train/spec] the losses past step 1 test only that the spec step sums in one "
+          "device's order: full-depth bf16 training is chaotic by step 2, where another "
+          "order of the same sums moves the loss past TRAIN_LOSS_TOL; [spec/grad] holds the "
+          "gradients within tolerance", flush=True)
+    _same_losses("[train/spec]", s["losses"], one_device_losses,
+                 "on one rank every placement is whole and the step sums as one device "
+                 "does")
+    return s["launches"]
+
+
+def spec_kernels_phase(dev, cfg, rcfg, zcfg):
+    """[spec/kernels]: each of the five wrappers handed DTensors over a
+    one-rank NCCL ``DeviceMesh`` (dims ``data`` and ``model``): batch over
+    ``data`` and heads (or rows) over ``model``, at the check's first prompt
+    length.  Each output must equal the plain-tensor call's bit for bit,
+    at the lead input's placements, and the wrapper's launch counter must
+    move by exactly one (the kernel ran on the local shard, nothing fell
+    back).  These launches are checks, not counted in the kernels line."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.comms import init_world
+    from repro_torch.kernels import KERNELS, ops
+
+    S = CHECK_S[0]
+    B = SERVE["batch_size"]
+    d, dff, H, Hkv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    randn, wkv6_inputs, ssd_inputs = make_inputs(dev, rcfg, zcfg)
+    bf16 = torch.bfloat16
+    r, k, v, w, u, s0 = wkv6_inputs(S, bf16)
+    x, Bm, Cm, decay, dt, h0 = ssd_inputs(S, bf16)
+    R = Replicate()
+    # name: (call, inputs, each input's placements over (data, model))
+    cases = {
+        "rmsnorm": (lambda a, sc: ops.rmsnorm(a, sc, eps=cfg.norm_eps),
+                    (randn(B, S, d, dtype=bf16), randn(d, dtype=bf16)),
+                    ([Shard(0), Shard(1)], [R, R])),
+        "swiglu": (ops.swiglu, (randn(B, S, dff, dtype=bf16), randn(B, S, dff, dtype=bf16)),
+                   ([Shard(0), Shard(2)], [Shard(0), Shard(2)])),
+        "flash_attention": (lambda q, kk, vv: ops.flash_attention(q, kk, vv, causal=True),
+                            (randn(B, H, S, hd, dtype=bf16), randn(B, Hkv, S, hd, dtype=bf16),
+                             randn(B, Hkv, S, hd, dtype=bf16)),
+                            ([Shard(0), Shard(1)],) * 3),
+        "wkv6": (ops.rwkv6_scan, (r, k, v, w, u, s0),
+                 ([Shard(0), Shard(1)],) * 4 + ([R, Shard(0)], [Shard(0), Shard(1)])),
+        "mamba2_ssd": (ops.mamba2_ssd_scan, (x, Bm, Cm, decay, dt, h0),
+                       ([Shard(0), Shard(2)], [Shard(0), R], [Shard(0), R],
+                        [Shard(0), Shard(2)], [Shard(0), Shard(2)], [Shard(0), Shard(1)])),
+    }
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("cuda", world_size=1, rank=0, store_path=os.path.join(tmp, "store"))
+        try:
+            check(dist.get_backend() == "nccl", f"[spec/kernels] backend {dist.get_backend()}")
+            mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                              mesh_dim_names=("data", "model"))
+            for name, (fn, args, placements) in cases.items():
+                with torch.no_grad():
+                    want = fn(*args)
+                    placed = [distribute_tensor(a, mesh, pl, src_data_rank=None)
+                              for a, pl in zip(args, placements)]
+                    before = KERNELS[name].launches
+                    got = fn(*placed)
+                    torch.cuda.synchronize()
+                    moved = KERNELS[name].launches - before
+                outs = got if isinstance(got, tuple) else (got,)
+                wants = want if isinstance(want, tuple) else (want,)
+                same = all(torch.equal(o.to_local(), ww) for o, ww in zip(outs, wants))
+                print(f"[spec/kernels] {name}: inputs {[list(p) for p in placements]} -> "
+                      f"output {list(outs[0].placements)} {tuple(outs[0].shape)} "
+                      f"{outs[0].dtype}; equal to the plain-tensor call bit for bit: {same}; "
+                      f"launches {moved}", flush=True)
+                check(same, f"[spec/kernels] {name}: the DTensor call differs")
+                check(moved == 1, f"[spec/kernels] {name}: {moved} launches, want 1")
+                check(list(outs[0].placements) == list(placements[0]),
+                      f"[spec/kernels] {name}: output placements {outs[0].placements}")
+            spec_grad_check(cfg, dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    print(f"[spec/kernels] the five wrappers on DTensors: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def spec_grad_check(cfg, dev, mesh):
+    """[spec/grad]: the spec path's loss and gradients against one
+    device's, on the same weights and batch: a 2-layer, full-width f32
+    granite-3-2b at ``[train/spec]``'s B 4 and S 1024, through
+    ``place_spec_state`` and ``place_spec_batch`` on the one-rank ``mesh``
+    under the launcher's activation policy, against the plain tensors.
+    Gates: the loss within ``TRAIN_LOSS_TOL``, every gradient leaf within
+    ``TRAIN_LEAF_RTOL["grad"]`` as ``[train/check]`` holds them, and both
+    calls launching B1-B3 as one step does (4L + 1, 2L, 2L).  Unlike the
+    losses of later steps of the full-depth bf16 run, which training has
+    already made chaotic, these stay within their tolerance under any order
+    of summation, so a wrong spec step shows here."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import _loss_and_grads, place_spec_batch, place_spec_state
+    from repro_torch.tree import is_dtensor, tree_leaves
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    L = cfg2.num_layers
+    params = init_params(cfg2, seed=0, device=dev)
+    raw = next(SyntheticLMPipeline(DataConfig(cfg2.vocab_size, TRAIN_DP["seq"],
+                                              TRAIN_DP["batch"])))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).detach()
+
+    def launched(fn):
+        before = {n: k.launches for n, k in KERNELS.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches - before[n] for n, k in KERNELS.items()}
+
+    (want_g, want_m), want_n = launched(lambda: _loss_and_grads(cfg2, params, batch))
+    shd.set_activation_policy({"dp": shd.dp_axes(mesh), "tp": "model",
+                               "sequence_parallel": True})
+    try:
+        with torch.no_grad():
+            placed, _, _ = place_spec_state(cfg2, OptimizerConfig(), params, mesh)
+        with implicit_replication():
+            (got_g, got_m), got_n = launched(
+                lambda: _loss_and_grads(cfg2, placed, place_spec_batch(batch, mesh)))
+    finally:
+        shd.set_activation_policy(None)
+    expect = {n: 0 for n in KERNELS}
+    expect.update(rmsnorm=4 * L + 1, swiglu=2 * L, flash_attention=2 * L)
+    check(want_n == got_n == expect,
+          f"[spec/grad] launches one device {want_n}, spec {got_n}, want {expect}")
+    loss, loss_ref = float(whole(got_m["loss"])), float(want_m["loss"])
+    rtol, atol = TRAIN_LOSS_TOL
+    check(abs(loss - loss_ref) <= atol + rtol * abs(loss_ref),
+          f"[spec/grad] loss {loss} != one device's {loss_ref}")
+    r = TRAIN_LEAF_RTOL["grad"]
+    got, want = [whole(g) for g in tree_leaves(got_g)], tree_leaves(want_g)
+    check(len(got) == len(want), f"[spec/grad] {len(got)} gradient leaves, want {len(want)}")
+    worst, equal, ok = 0.0, 0, True
+    for g, w in zip(got, want):
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        ok = ok and bool(torch.isfinite(g).all()) and bool(
+            torch.allclose(g, w, rtol=r, atol=r * scale))
+        worst = max(worst, err / scale if scale else (0.0 if err == 0 else math.inf))
+        equal += bool(torch.equal(g, w))
+    print(f"[spec/grad] 2-layer full-width f32 granite, B {TRAIN_DP['batch']}, S "
+          f"{TRAIN_DP['seq']}, one rank: loss spec {loss:.6f} one device {loss_ref:.6f}; "
+          f"{len(got)} gradient leaves within rtol {r} and atol {r} x max |leaf| "
+          f"({equal} equal bit for bit; worst error {worst:.3e} of its leaf's max): {ok}; "
+          f"launches each {got_n}", flush=True)
+    check(ok, "[spec/grad] the spec path's gradients differ from one device's")
 
 
 def serve_phase(name, cfg, dev, per_forward):
@@ -1465,8 +1689,11 @@ def perf_moe_phase():
     check(len(rows) == len(archs) and all("allclose=True" in r for r in rows),
           f"[perf/moe] rows {rows}")
     check(all("(a2a=0)" not in r for r in rows), "[perf/moe] no all-to-all plan issued")
+    gspmd = [float(r.split(" gspmd=")[1].split("us")[0]) for r in rows]
+    check(all(g > 0 for g in gspmd), f"[perf/moe] GSPMD contrast times {gspmd}")
     launches = _perf_launches(lines, "[perf/moe]")
-    # each arch: the local block, the checked EP block, and 1 + reps timed calls of each
+    # each arch: the local block, the checked EP block, and 1 + reps timed calls of
+    # the EP block and of its GSPMD contrast
     calls = 2 + 2 * (1 + PERF_MOE_REPS)
     want = {n: 0 for n in KERNELS}
     for arch in archs:
@@ -1475,6 +1702,37 @@ def perf_moe_phase():
     check(launches == want, f"[perf/moe] launches {launches} != {want}")
     print(f"[perf/moe] one NCCL rank, both archs: allclose, an all-to-all plan each; launches "
           f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def perf_tp_block_phase():
+    """[perf/tp-block]: ``--tp-block 1`` on the card, one NCCL rank: the
+    explicit TP and SP blocks (fusion on, off and "auto") allclose to the
+    unsharded block, each row's GSPMD contrast (the block on the layer and
+    input placed by ``tp_block_specs`` as DTensors) measured, B1-B3
+    launched exactly as often as the blocks run.  Returns the launches."""
+    from repro_torch.kernels import KERNELS
+
+    t0 = time.perf_counter()
+    lines = run_group(PERF_BASE + ["--tp-block", "1", "--device", "cuda", "--reps",
+                                   str(PERF_MOE_REPS), "--timeout", "240"], 300,
+                      "[perf/tp-block]")
+    rows = [ln for ln in lines if ln.startswith("[perf/tp-block] ") and " fuse=" in ln]
+    check(len(rows) == 6 and all(ln.endswith("allclose=True") for ln in rows),
+          f"[perf/tp-block] rows {rows}")
+    gspmd = [float(r.split(" gspmd=")[1].split("us")[0]) for r in rows]
+    check(all(g > 0 for g in gspmd), f"[perf/tp-block] GSPMD contrast times {gspmd}")
+    launches = _perf_launches(lines, "[perf/tp-block]")
+    # the unsharded block once; then for TP and for SP, 1 + reps timed calls
+    # of the GSPMD contrast and, for each of the three fusions, the checked
+    # call and 1 + reps timed calls of the explicit block.  A block runs
+    # two rmsnorms, one SwiGLU and one attention.
+    blocks = 1 + 2 * ((1 + PERF_MOE_REPS) + 3 * (2 + PERF_MOE_REPS))
+    want = {n: 0 for n in KERNELS}
+    want.update(rmsnorm=2 * blocks, swiglu=blocks, flash_attention=blocks)
+    check(launches == want, f"[perf/tp-block] launches {launches} != {want}")
+    print(f"[perf/tp-block] one NCCL rank: six rows allclose, GSPMD contrasts "
+          f"{gspmd} us; launches {launches}; {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -1554,15 +1812,16 @@ def perf_calibrate_phase():
 
 def perf_phases():
     """``python -m repro_torch.launch.perf``'s sections in turn, each a
-    subprocess with a timeout.  Returns the launches of the moe and cluster
-    runs, summed."""
+    subprocess with a timeout.  Returns the launches of the moe, tp-block
+    and cluster runs, summed."""
     t0 = time.perf_counter()
     moe = perf_moe_phase()
+    tp = perf_tp_block_phase()
     perf_modeled_phase()
     perf_calibrate_phase()
     cluster = perf_cluster_phase()
-    print(f"[perf] the five sections in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {n: moe[n] + cluster[n] for n in moe}
+    print(f"[perf] the six sections in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: moe[n] + tp[n] + cluster[n] for n in moe}
 
 
 def prefill_vlm_phase(vcfg, dev):
@@ -1754,6 +2013,15 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg):
         for shape in ((16, 4, 1, 128), (4, 16, 128), (16, 128)):
             g, u = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
             compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype, f"perf --moe {shape}")
+        # launch.perf --tp-block's layer (d 8, d_ff 16; B 2, S 32: 64 rows),
+        # in its TP and SP blocks and its GSPMD contrast on one rank
+        x = randn(2, 32, 8, dtype=dtype)
+        sc = randn(8, dtype=dtype, mul=0.1, add=1.0)
+        compare("rmsnorm", rmsnorm(x, sc, eps=cfg.norm_eps), ref.rmsnorm(x, sc, cfg.norm_eps),
+                dtype, "perf --tp-block (2,32,8) = (64,8) rows")
+        g, u = randn(2, 32, 16, dtype=dtype), randn(2, 32, 16, dtype=dtype)
+        compare("swiglu", swiglu(g, u), ref.swiglu(g, u), dtype,
+                "perf --tp-block (2,32,16) = (64,16) rows")
         cases = [(B, H, Hkv, s, s, hd, True) for s in CHECK_S]
         # the serves' prompt lengths 71 and 445 and short tiles, at granite's
         # GQA rep 4; zamba2's hd 80 at 71; hd 128
@@ -1762,6 +2030,7 @@ def check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg):
         cases += [(B, H, Hkv, 200, 328, hd, False)]  # non-causal, ragged S and T
         cases += [(1, 4, 2, 100, 100, e, True) for e in (16, 32, 128)]  # other head dims
         cases += [(2, 2, 2, 8, 8, 16, True)]  # launch.perf --cluster's replicas' prefill
+        cases += [(2, 1, 1, 32, 32, 16, True)]  # launch.perf --tp-block's block
         cases += [(B, zH, zH, s, s, zhd, True) for s in (200, 512)]  # zamba2: hd 80, MHA
         cases += [(TRAIN["batch"], H, Hkv, TRAIN["seq"], TRAIN["seq"], hd, True)]  # training
         # llama4-scout's prefill: H 40, Hkv 8 (GQA rep 5), hd 128, at the
@@ -2107,6 +2376,7 @@ def main() -> int:
 
     # ---- 2. check each kernel against its plain version on the card ---------
     max_err = check_phase(dev, cfg, rcfg, zcfg, lcfg, vcfg, acfg)
+    spec_kernels_phase(dev, cfg, rcfg, zcfg)
 
     # ---- 3. time at the largest serving shape (bf16) -------------------------
     results = time_phase(dev, cfg, rcfg, zcfg, vcfg, acfg)
@@ -2141,7 +2411,8 @@ def main() -> int:
     plan_phase(grad_bytes)
     train_resume_phase(cfg, dev)
     torch.cuda.empty_cache()
-    trained_dp = train_dp_phase(cfg, card)
+    trained_dp, one_device_losses = train_dp_phase(cfg, card)
+    trained_spec = train_spec_phase(cfg, card, one_device_losses)
 
     # ---- 6. the collective executors: one NCCL rank, 8 gloo ranks ----------
     comms_card_phase(dev)
@@ -2202,7 +2473,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{KERNELS[name].source}",
             "replaces": REPLACES[name],
-            "launches": (trained[name] + trained_dp[name] + granite[name] + rwkv6[name]
+            "launches": (trained[name] + trained_dp[name] + trained_spec[name] + granite[name]
+                         + rwkv6[name]
                          + zamba2[name]
                          + llama4[name] + cluster[name] + vlm_prefill[name] + phi3v[name]
                          + encoded[name] + audio_trained[name] + perf[name]),

@@ -19,10 +19,16 @@ links table back (``ctx.update_links(...)``) drops every stale entry and
 the next call re-plans with it.  ``ctx.cache_stats`` (hits / misses /
 invalidated) makes the re-plan observable.
 
-Every op takes this rank's LOCAL array: the reference's "inside shard_map"
-contract, one process per rank.  The reference's ops also accept a global
-array outside ``shard_map`` and wrap themselves in it; the port has no
-global-array path until a DTensor front end (ROADMAP A12).  Under
+A plain tensor is this rank's LOCAL array: the reference's "inside
+shard_map" contract, one process per rank.  A DTensor is a global array,
+the reference's call outside ``shard_map``: the op redistributes it to the
+reference's ``in_spec`` over the context's axes (all_gather: sharded along
+``axis``; reduce_scatter and all_reduce: replicated; all_to_all: sharded),
+runs the plan on ``to_local()`` exactly as on a local array, and returns
+``DTensor.from_local`` at the ``out_spec`` (all_gather and all_reduce:
+replicated; reduce_scatter and all_to_all: sharded along ``axis``), of the
+input's global shape.  The DTensor's mesh names its dims by the context's
+axis names, rank for rank as the context's ``FactorizedMesh``.  Under
 ``PlanPolicy(verify=True)`` every op runs through the verified executor
 (``plan_executor.execute_plan_verified``: checksums, bounded retry, the
 one-shot fallback), and a fallback on any rank of the group is counted
@@ -63,6 +69,7 @@ from ..core.planner import (
     matmul_block_time,
     plan_collective_matmul,
 )
+from ..tree import is_dtensor
 from .collective_matmul import _mm, fused_allgather_matmul, fused_matmul_reduce_scatter
 
 __all__ = [
@@ -962,6 +969,31 @@ def _require_mesh(ctx: CommContext, op: str):
     return ctx.mesh
 
 
+def _global_path(ctx: CommContext, op, x, axis: int, names, sharded_in: bool,
+                 sharded_out: bool, **kw):
+    """The global-array path of ``op`` for the DTensor ``x`` (the
+    reference's ``_run_wrapped``, taken outside an axis env): redistributed
+    to its in_spec, ``op`` on the local array, wrapped at its out_spec."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if ctx.mesh is None:  # the reference's _require_mesh(ctx, "this op")
+        raise ValueError(
+            "this op was called outside shard_map and the active CommContext "
+            "has no mesh; install one via comm_context(mesh, axis_names)")
+    mesh = x.device_mesh
+    dims = {mesh.mesh_dim_names.index(n) for n in names}
+
+    def placements(sharded):
+        return [Shard(axis) if sharded and i in dims else Replicate()
+                for i in range(mesh.ndim)]
+
+    y = x.redistribute(mesh, placements(sharded_in)).to_local()
+    out = op(y, axis=axis, axes=names, ctx=ctx, **kw)
+    stride = torch.empty(x.shape, device="meta").stride()
+    return DTensor.from_local(out, mesh, placements(sharded_out), run_check=False,
+                              shape=x.shape, stride=stride)
+
+
 def _run_local(ctx, y, plan, axis):
     """Execute a plan on this rank's array over the context's mesh,
     verified when the policy says so.  A verified run's fallback flag is
@@ -1037,12 +1069,17 @@ def all_gather(
     """Context-planned staged all-gather over the context axes.
 
     ``x`` is this rank's shard; returns the full gather, bit-identical to
-    ``lax.all_gather(x, axes, axis=axis, tiled=True)``.
+    ``lax.all_gather(x, axes, axis=axis, tiled=True)``.  A DTensor is the
+    global array, sharded along ``axis`` for the call; it comes back
+    replicated.
     ``mode``/``num_chunks`` override the context policy for this call."""
     ctx, names = _resolve(ctx, axes)
-    _require_mesh(ctx, "all_gather")
     if axis < 0:
         axis += x.dim()
+    if is_dtensor(x):
+        return _global_path(ctx, all_gather, x, axis, names, True, False,
+                            mode=mode, num_chunks=num_chunks)
+    _require_mesh(ctx, "all_gather")
     plan, _ = _local_plan(ctx, "ag", names, x, axis,
                           mode=mode, num_chunks=num_chunks, scattered=True)
     return _run_planned(ctx, x, plan, axis, names)
@@ -1059,11 +1096,15 @@ def reduce_scatter(
 ) -> torch.Tensor:
     """Context-planned staged reduce-scatter (equals ``lax.psum_scatter``
     tiled, canonical blocks).  ``x`` is this rank's full-length addend;
-    returns its block of the sum."""
+    returns its block of the sum.  A DTensor is replicated for the call
+    and comes back sharded along ``axis``."""
     ctx, names = _resolve(ctx, axes)
-    _require_mesh(ctx, "reduce_scatter")
     if axis < 0:
         axis += x.dim()
+    if is_dtensor(x):
+        return _global_path(ctx, reduce_scatter, x, axis, names, False, True,
+                            mode=mode, num_chunks=num_chunks)
+    _require_mesh(ctx, "reduce_scatter")
     plan, _ = _local_plan(ctx, "rs", names, x, axis,
                           mode=mode, num_chunks=num_chunks, scattered=False)
     return _run_planned(ctx, x, plan, axis, names)
@@ -1083,11 +1124,15 @@ def all_reduce(
     ``axis`` only selects which dim the staged RS+AG pipeline scatters
     along.  A length not divisible by the rank product takes one flat
     all-reduce over the axes' process group, so model code never has to
-    care about divisibility (the old ``tp_all_reduce`` contract)."""
+    care about divisibility (the old ``tp_all_reduce`` contract).  A
+    DTensor is replicated for the call and comes back replicated."""
     ctx, names = _resolve(ctx, axes)
-    mesh = _require_mesh(ctx, "all_reduce")
     if axis < 0:
         axis += x.dim()
+    if is_dtensor(x):
+        return _global_path(ctx, all_reduce, x, axis, names, False, False,
+                            mode=mode, num_chunks=num_chunks)
+    mesh = _require_mesh(ctx, "all_reduce")
     n_total = math.prod(ctx._sizes(names).values())
     if x.shape[axis] % n_total:  # before planning: don't cache a plan never run
         return _differentiable(x, lambda v: mesh.psum(v, names), "ar", ctx, names, axis)
@@ -1111,12 +1156,16 @@ def all_to_all(
     ``x`` is this rank's full exchange buffer: dim ``axis`` holds N equal
     destination blocks in canonical (major-first) order; the result holds
     the N received blocks by origin, bit-identical to ``lax.all_to_all(x,
-    axes, split_axis=axis, concat_axis=axis, tiled=True)``.
+    axes, split_axis=axis, concat_axis=axis, tiled=True)``.  A DTensor is
+    sharded along ``axis`` for the call and comes back sharded the same way.
     ``mode``/``num_chunks`` override the context policy for this call."""
     ctx, names = _resolve(ctx, axes)
-    _require_mesh(ctx, "all_to_all")
     if axis < 0:
         axis += x.dim()
+    if is_dtensor(x):
+        return _global_path(ctx, all_to_all, x, axis, names, True, True,
+                            mode=mode, num_chunks=num_chunks)
+    _require_mesh(ctx, "all_to_all")
     n_total = math.prod(ctx._sizes(names).values())
     plan = ctx.plan("a2a", x.numel() * x.element_size(), axes=names,
                     shape=tuple(x.shape), dtype=x.dtype)

@@ -10,8 +10,8 @@ communication.
 
 ``optree_all_gather`` plans the stage order from the cost model
 (core.planner, Theorem 2) and runs it on the local shard.  The reference's
-wrapper takes a globally sharded array and wraps ``shard_map``; the port
-has no global-array path (a DTensor front end is ROADMAP A12), so every op
+wrapper takes a globally sharded array and wraps ``shard_map``; in the
+port a global array is a DTensor and takes ``comms.api``'s ops, so every op
 here takes this rank's shard, the reference's "inside shard_map" contract.
 """
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas``.  A
 tensor on the CPU takes the plain version (``ref.flash_attention``); a
-tensor on the card launches the kernel, or the call raises.  Under grad
+tensor on the card launches the kernel, or the call raises; a DTensor runs
+on its local shard (``local.call_local``).  Under grad
 mode the launch is differentiable through the plain version's vjp
 (``autograd.kernel_call``).  The dtype chooses the kernel: bf16 runs on the
 tensor cores and needs 16-byte-aligned q, k and v (the wrapper raises on
@@ -20,9 +21,11 @@ from typing import Optional
 
 import torch
 
+from ..tree import is_dtensor
 from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
+from .local import call_local, flash_rule
 
 __all__ = ["flash_attention", "KERNEL", "HEAD_DIMS"]
 
@@ -94,7 +97,11 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Softmax attention of q against k, v with GQA head mapping; returns
-    (B, H, S, hd) in q's dtype."""
+    (B, H, S, hd) in q's dtype.  DTensors run on their local shards
+    (``local.flash_rule``)."""
+    if is_dtensor(q):
+        return call_local(lambda a, b, c: flash_attention(a, b, c, causal=causal, scale=scale),
+                          flash_rule, (q, k, v), (q.shape,), "flash_attention")
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)

@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/mamba2_scan.py:mamba2_ssd_pallas``.  A tensor on
 the CPU takes the plain version (``ref.mamba2_ssd_scan``); a tensor on the
-card launches the kernel, or the call raises.  Under grad mode the launch
+card launches the kernel, or the call raises; a DTensor runs on its local
+shard (``local.call_local``).  Under grad mode the launch
 is differentiable through the plain version's vjp
 (``autograd.kernel_call``).  The kernel takes every sequence length, 1
 (decode) included, where the Pallas wrapper refuses ``S`` that is not a
@@ -27,9 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..tree import is_dtensor
 from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
+from .local import call_local, ssd_rule
 
 __all__ = ["mamba2_ssd_scan", "route", "KERNEL", "STATE_DIMS", "MAX_HEAD_DIM", "ROUTES"]
 
@@ -100,7 +103,12 @@ def mamba2_ssd_scan(
     state: Optional[torch.Tensor] = None,  # (B, H, P, N) float32; None: zeros
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD recurrence from ``state``; returns (y (B,S,H,P) float32, the
-    final state (B,H,P,N) float32).  ``state`` is read, never written."""
+    final state (B,H,P,N) float32).  ``state`` is read, never written.
+    DTensors run on their local shards (``local.ssd_rule``)."""
+    if is_dtensor(x):
+        B, _, H, P = x.shape
+        return call_local(mamba2_ssd_scan, ssd_rule, (x, Bmat, Cmat, decay, dt, state),
+                          (x.shape, (B, H, P, Bmat.shape[-1])), "mamba2_ssd_scan")
     _check(x, Bmat, Cmat, decay, dt, state)
     if x.device.type == "cpu":
         return ref.mamba2_ssd_scan(x, Bmat, Cmat, decay, dt, state)

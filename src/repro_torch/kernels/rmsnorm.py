@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/rmsnorm.py:rmsnorm_pallas``.  A tensor on the CPU
 takes the plain version (``ref.rmsnorm``); a tensor on the card launches
-the kernel, or the call raises.  Under grad mode the launch is
+the kernel, or the call raises; a DTensor runs on its local shard
+(``local.call_local``).  Under grad mode the launch is
 differentiable through the plain version's vjp (``autograd.kernel_call``).
 """
 from __future__ import annotations
@@ -11,9 +12,11 @@ import ctypes
 
 import torch
 
+from ..tree import is_dtensor
 from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
+from .local import call_local, rmsnorm_rule
 
 __all__ = ["rmsnorm", "KERNEL", "MAX_CHUNKS"]
 
@@ -61,7 +64,11 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps))`` rounded to x's dtype, times ``scale``,
-    over the last dim of ``x``."""
+    over the last dim of ``x``.  A DTensor runs on its local rows
+    (``local.rmsnorm_rule``)."""
+    if is_dtensor(x):
+        return call_local(lambda xl, sl: rmsnorm(xl, sl, eps=eps), rmsnorm_rule, (x, scale),
+                          (x.shape,), "rmsnorm")
     _check(x, scale)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps)

@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/swiglu.py:swiglu_pallas``.  A tensor on the CPU
 takes the plain version (``ref.swiglu``); a tensor on the card launches the
-kernel, or the call raises.  Under grad mode the launch is differentiable
+kernel, or the call raises; a DTensor runs on its local shard
+(``local.call_local``).  Under grad mode the launch is differentiable
 through the plain version's vjp (``autograd.kernel_call``).
 """
 from __future__ import annotations
@@ -11,9 +12,11 @@ import ctypes
 
 import torch
 
+from ..tree import is_dtensor
 from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
+from .local import call_local, swiglu_rule
 
 __all__ = ["swiglu", "KERNEL"]
 
@@ -49,7 +52,10 @@ def _launch(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """``silu(gate) * up`` in f32, returned in gate's dtype."""
+    """``silu(gate) * up`` in f32, returned in gate's dtype.  DTensors run on
+    their local shards (``local.swiglu_rule``)."""
+    if is_dtensor(gate):
+        return call_local(swiglu, swiglu_rule, (gate, up), (gate.shape,), "swiglu")
     _check(gate, up)
     if gate.device.type == "cpu":
         return ref.swiglu(gate, up)

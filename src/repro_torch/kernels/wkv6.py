@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/rwkv6_scan.py:rwkv6_scan_pallas``.  A tensor on the
 CPU takes the plain version (``ref.rwkv6_scan``); a tensor on the card
-launches the kernel, or the call raises.  Under grad mode the launch is
+launches the kernel, or the call raises; a DTensor runs on its local
+shard (``local.call_local``).  Under grad mode the launch is
 differentiable through the plain version's vjp (``autograd.kernel_call``).
 The kernel takes every sequence length, 1 (decode) included: the
 reference's fallback to its oracle when ``S`` is not a multiple of the
@@ -16,9 +17,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..tree import is_dtensor
 from . import ref
 from .autograd import kernel_call
 from .build import DTYPE_CODES, CudaKernel, stream_of
+from .local import call_local, wkv6_rule
 
 __all__ = ["rwkv6_scan", "KERNEL", "HEAD_DIMS"]
 
@@ -67,7 +70,12 @@ def rwkv6_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The WKV6 recurrence from ``state``; returns (y (B,H,S,hd) in r's
     dtype, the final state (B,H,hd,hd) in float32).  ``state`` is read,
-    never written."""
+    never written.  DTensors run on their local shards
+    (``local.wkv6_rule``)."""
+    if is_dtensor(r):
+        B, H, _, hd = r.shape
+        return call_local(rwkv6_scan, wkv6_rule, (r, k, v, w, u, state),
+                          (r.shape, (B, H, hd, hd)), "rwkv6_scan")
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return ref.rwkv6_scan(r, k, v, w, u, state)

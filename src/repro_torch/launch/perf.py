@@ -53,9 +53,12 @@ on, off and ``"auto"``.  Per variant it prints the plans the context
 cached and the collectives one block issued (``ctx.plan_usage()``), the
 modeled electrical and optical time of those very plans weighted by their
 issue count, the measured time of one block (the slowest rank's mean) against
-the unsharded block (``transformer_block_ref`` on the full layer, one
-rank), the modes and the cache counters, after checking the explicit block
-against the unsharded one (atol 2e-5, the reference's; f32).  The layer is
+the reference's GSPMD contrast (``gspmd``: ``transformer_block_ref`` on the
+layer and input placed by ``tp_block_specs`` as DTensors over the world's
+``DeviceMesh``, DTensor's propagation emitting the collectives), the modes
+and the cache counters, after checking the explicit block against the
+unsharded one (``transformer_block_ref`` on the full layer, one rank; atol
+2e-5, the reference's; f32).  The layer is
 the reference's ``tp_block_bench`` one (d 8N, N heads, d_ff 16N for N
 ranks) with head dim 16, the flash kernel's smallest (the reference's is
 8); ``--seq`` and ``--batch`` size the input.
@@ -69,9 +72,9 @@ context-planned ``api.all_to_all``.  It checks the block against the
 all-experts-local block on each rank's shard (the reference's atol 2e-5)
 and prints the plans one block issued, their modeled electrical and
 optical time weighted by issue count, and the measured time of the
-expert-parallel block beside the all-experts-local one (``local``, in
-place of the reference's GSPMD contrast, which needs placements the port
-does not have yet).
+expert-parallel block beside the reference's GSPMD contrast (``gspmd``:
+the block with every expert replicated and the batch split ``P(names)``,
+as DTensors over the world's ``DeviceMesh``).
 
   PYTHONPATH=src python -m repro_torch.launch.perf --faults 2,4
 
@@ -199,6 +202,25 @@ def _timed(fn, reps, dev):
                      device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return float(t.item())
+
+
+def _world_mesh(dev, factors, names):
+    """The world as a ``DeviceMesh`` with the bench's axis names: the
+    GSPMD contrasts' placements."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(dev.type, torch.arange(math.prod(factors)).reshape(tuple(factors)),
+                      mesh_dim_names=tuple(names))
+
+
+def _placed(t, dmesh, dim):
+    """``t`` as a DTensor split on ``dim`` over every mesh dim (the
+    reference's spec with the tuple of every axis), or replicated for None."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = [Replicate() if dim is None else Shard(dim % t.dim())] * dmesh.ndim
+    return distribute_tensor(t, dmesh, pl, src_data_rank=None)
 
 
 def _same_bits(a, b) -> bool:
@@ -372,6 +394,7 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
     modeled electrical and optical times off the SAME CollectivePlan
     objects the context cached while the block ran."""
     import torch
+    from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.comms import api
     from repro_torch.configs import ModelConfig
@@ -383,6 +406,7 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
         transformer_block_tp,
     )
     from repro_torch.models.model import _layer_init
+    from repro_torch.tree import tree_map
 
     names, n, mesh, link_map, _, notes = _bench_setup(factors, links_path)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
@@ -402,13 +426,24 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
         f"modeled with the reference's link constants")
     with torch.no_grad():
         ref = transformer_block_ref(layer, cfg, x, positions=positions)
-        t_ref = _timed(lambda: transformer_block_ref(layer, cfg, x, positions=positions),
-                       reps, dev)
+    dmesh = _world_mesh(dev, factors, names)
     rows = []
     for sp in (False, True):
         tag = "sp" if sp else "tp"
         x_split, specs = tp_block_specs(layer, sequence_parallel=sp)
         local = shard_tp_layer(layer, specs, mesh, names)
+        # the GSPMD contrast: the whole block on the placed layer and input,
+        # its output back at the input's placements
+        gx = _placed(x, dmesh, x_split)
+        glayer = tree_map(lambda leaf, d: _placed(leaf, dmesh, d), layer, specs)
+
+        def gspmd():
+            with implicit_replication():
+                out = transformer_block_ref(glayer, cfg, gx, positions=positions)
+            return out.redistribute(dmesh, gx.placements)
+
+        with torch.no_grad():
+            t_gspmd = _timed(gspmd, reps, dev)
         xl, want = x, ref
         if x_split is not None:
             idx, blk = mesh.axis_index(names), seq // n
@@ -432,7 +467,7 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
                 t_explicit = _timed(block, reps, dev)
             row = dict(variant=tag, fuse=fuse, plans=len(usage), issued=issued,
                        modeled_elec_us=elec * 1e6, modeled_opt_us=opt * 1e6,
-                       measured_tp_us=t_explicit, measured_unsharded_us=t_ref,
+                       measured_tp_us=t_explicit, measured_gspmd_us=t_gspmd,
                        allclose=ok, cache=dataclasses.asdict(ctx.cache_stats),
                        modes=sorted({p.mode for p, _ in usage}))
             rows.append(row)
@@ -440,11 +475,12 @@ def tp_block_bench(dev, factors, reps=5, links_path=None, seq=32, batch=2) -> li
                 f"d={cfg.d_model}: plans={row['plans']} issued={issued} "
                 f"modeled elec={row['modeled_elec_us']:.1f}us "
                 f"optical={row['modeled_opt_us']:.1f}us | measured "
-                f"explicit={t_explicit:.0f}us unsharded={t_ref:.0f}us "
+                f"explicit={t_explicit:.0f}us gspmd={t_gspmd:.0f}us "
                 f"modes={row['modes']} cache={row['cache']} allclose={ok}")
             if not ok:
                 raise RuntimeError(f"tp-block {tag} fuse={fuse}: the explicit block "
                                    f"diverged from the unsharded block")
+    say(f"[perf/kernels] {_launches()}")
     return rows
 
 
@@ -480,10 +516,12 @@ def moe_block_bench(dev, factors, reps=5, links_path=None, archs=MOE_ARCHS,
     every call, the reference's its one trace)."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.comms import api
     from repro_torch.core.cost_model import TERARACK, price
     from repro_torch.models.moe import moe_block, moe_init
+    from repro_torch.tree import tree_map
 
     names, n, mesh, link_map, _, notes = _bench_setup(factors, links_path)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
@@ -493,6 +531,7 @@ def moe_block_bench(dev, factors, reps=5, links_path=None, archs=MOE_ARCHS,
     say(f"[perf/moe] world {n} ranks, mesh {list(factors)}, experts over {names[-1]!r}, "
         f"B {per_dev} S {seq} a rank, f32, measured on {_where(dev)}; modeled with the "
         f"reference's link constants")
+    dmesh = _world_mesh(dev, factors, names)
     rows = []
     for arch, cfg in _moe_configs(archs, names, factors):
         cfg_ref = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_axis=None))
@@ -508,6 +547,15 @@ def moe_block_bench(dev, factors, reps=5, links_path=None, archs=MOE_ARCHS,
         def ep():
             return moe_block(p, cfg, xl)[0]
 
+        # the GSPMD contrast: every expert replicated, the batch split P(names)
+        gp = tree_map(lambda leaf: _placed(leaf, dmesh, None), p)
+        gx = _placed(x, dmesh, 0)
+
+        def gspmd():
+            with implicit_replication():
+                out = moe_block(gp, cfg_ref, gx)[0]
+            return out.redistribute(dmesh, gx.placements)
+
         with torch.no_grad():
             want = local()
             with api.comm_context(mesh, tuple(names), links=link_map) as ctx:
@@ -515,7 +563,7 @@ def moe_block_bench(dev, factors, reps=5, links_path=None, archs=MOE_ARCHS,
                 usage = ctx.plan_usage()
                 cache = dataclasses.asdict(ctx.cache_stats)
                 t_ep = _timed(ep, reps, dev)
-            t_local = _timed(local, reps, dev)
+            t_gspmd = _timed(gspmd, reps, dev)
         flag = torch.tensor([int(close)], device=dev)
         dist.all_reduce(flag, op=dist.ReduceOp.MIN)  # the check spans every shard
         ok = bool(flag.item())
@@ -526,14 +574,14 @@ def moe_block_bench(dev, factors, reps=5, links_path=None, archs=MOE_ARCHS,
                   for pl, c in usage)
         row = dict(arch=arch, plans=len(usage), a2a_plans=len(a2a), issued=issued,
                    modeled_elec_us=elec * 1e6, modeled_opt_us=opt * 1e6,
-                   measured_ep_us=t_ep, measured_local_us=t_local, allclose=ok,
+                   measured_ep_us=t_ep, measured_gspmd_us=t_gspmd, allclose=ok,
                    cache=cache, modes=sorted({pl.mode for pl, _ in usage}))
         rows.append(row)
         say(f"[perf/moe] {arch} mesh={list(factors)} ep_axis={names[-1]} "
             f"E={cfg.moe.num_experts} top_k={cfg.moe.top_k}: plans={row['plans']} "
             f"(a2a={row['a2a_plans']}) issued={issued} "
             f"modeled elec={row['modeled_elec_us']:.1f}us optical={row['modeled_opt_us']:.1f}us "
-            f"| measured ep={t_ep:.0f}us local={t_local:.0f}us allclose={ok} "
+            f"| measured ep={t_ep:.0f}us gspmd={t_gspmd:.0f}us allclose={ok} "
             f"modes={row['modes']} cache={cache}")
         if not ok:
             raise SystemExit(f"--moe {arch}: EP block diverged from "

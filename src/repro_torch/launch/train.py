@@ -8,6 +8,8 @@ The port of ``repro/launch/train.py``:
       --seq 1024 --batch 4 --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --device cpu --mesh 2,4,1 --zero1 explicit --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+      --reduced --device cpu --mesh 2,4 --zero1 spec --steps 3
 
 Weights are random (``init_params`` with seed 0), batches of tokens and
 labels come from ``SyntheticLMPipeline`` (seed 0; a vision model such as
@@ -24,6 +26,22 @@ latest committed one.  Unlike the reference, a resumed run also moves the
 data pipeline to the batch of the step it resumes at, so it trains on the
 batches an unbroken run would.  It runs on ``cuda`` unless ``--device cpu``
 is given.
+
+``--mesh data,model`` or ``--mesh pod,data,model`` with ``--zero1 spec``
+(the default, as in the reference) trains on a ``DeviceMesh`` of
+``prod(mesh)`` ranks with those dim names, the reference's spec path: the
+parameters are DTensors placed by ``sharding.param_specs`` (their layers
+stored stacked, as the reference stores them), the optimizer state by
+ZeRO-1 ``opt_state_specs`` over ``data``, the batch ``P(dp, None)`` over
+the data axes when they divide it (replicated otherwise), and the
+activations are redistributed by ``sharding.constrain`` under the
+reference's policy (``sequence_parallel`` unless ``--reduced``).  A step
+is written in global semantics (``runtime.make_spec_train_step``) and
+DTensor's sharding propagation and collectives stand in for GSPMD's, so no
+collective of ``comms`` runs there, as none of the reference's does; the
+kernels run on each rank's shard (``kernels.local``).  A checkpoint holds
+full tensors, gathered on every rank and written by rank 0; ``--resume``
+restores and redistributes them.
 
 ``--mesh data,model`` or ``--mesh pod,data,model`` with ``--zero1
 explicit`` trains data-parallel, the reference's explicit ZeRO-1 path: it
@@ -43,7 +61,7 @@ prints the ``[train/zero1-explicit]`` pod-traffic note, the
 ``[train/fault]`` line and the final ``[train/comms-json]`` snapshot, as
 the reference does.  Both paths end with a ``[train/summary]`` JSON line:
 the losses, the step times, the peak device memory and the kernel
-launches of the run.  On one card the data-parallel path is ``--mesh 1,1``.
+launches of the run.  On one card either path runs as ``--mesh 1,1``.
 
 Where the port differs from the reference by design:
 
@@ -60,10 +78,13 @@ Where the port differs from the reference by design:
   ``shard_map`` and prints ``fallbacks=0``; the port counts each one.  On
   float gradients most verified calls fall back to the one-shot
   collective, as the checksums are compared exactly in both packages.
-* ``--zero1 spec`` under ``--mesh`` (GSPMD placements by sharding specs)
-  waits for DTensor placements (ROADMAP A12c) and is refused;
-  ``--zero1 explicit`` needs ``--mesh``.  As in the reference,
-  ``--verify-collectives`` without ``--zero1 explicit`` changes nothing.
+* Without ``--mesh`` the port trains on one device (the reference's
+  ``--mesh`` defaults to 16,16), so ``--zero1 explicit`` needs ``--mesh``.
+  As in the reference, ``--verify-collectives`` without ``--zero1
+  explicit`` changes nothing.
+* The spec path's optimizer state keeps the reference's stacked layers,
+  so its checkpoints are laid out as the reference's are there, not as
+  the one-device path's.
 """
 from __future__ import annotations
 
@@ -79,9 +100,16 @@ from repro_torch.configs import expert_parallel, get_config, reduced as reduce_c
 from repro_torch.data import DataConfig, SyntheticLMPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import dp_axes
 from repro_torch.optim import OptimizerConfig, adamw_init
-from repro_torch.runtime.trainer import Trainer, TrainerConfig, make_dp_train_step
+from repro_torch.runtime.trainer import (
+    Trainer,
+    TrainerConfig,
+    make_dp_train_step,
+    make_spec_train_step,
+    place_spec_state,
+)
 
 SHAPE_HELP = ("required unless --reduced: the reference's default shape "
               "(train_4k: seq 4096, batch 256) is sized for a pod and "
@@ -156,8 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mesh", default=None,
                     help="data,model or pod,data,model axis sizes: train "
-                         "data-parallel over prod(mesh) ranks (needs --zero1 "
-                         "explicit and a model axis of 1); one device without")
+                         "over prod(mesh) ranks (--zero1 explicit needs a model "
+                         "axis of 1); one device without")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=None,
                     help=f"sequence length (64 with --reduced); {SHAPE_HELP}")
@@ -196,10 +224,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "explicit); the a2a plans show up in the per-plan "
                          "comm telemetry")
     ap.add_argument("--zero1", choices=["spec", "explicit"], default="spec",
-                    help="gradient sync under --mesh: 'explicit' runs the "
-                         "staged ZeRO-1 path (reduce-scatter over data, pod "
-                         "reduced on the scattered shard, staged re-gather); "
-                         "'spec' (GSPMD placements) is ROADMAP A12c")
+                    help="gradient sync under --mesh: 'spec' places parameters, "
+                         "ZeRO-1 optimizer state and batch as DTensors by the "
+                         "sharding specs and lets DTensor emit the collectives; "
+                         "'explicit' runs the staged ZeRO-1 path (reduce-scatter "
+                         "over data, pod reduced on the scattered shard, staged "
+                         "re-gather; model axis 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; under --mesh an NCCL rank a card) or "
                          "cpu (the plain versions; under --mesh a gloo world)")
@@ -240,16 +270,11 @@ def _config(args, ap: argparse.ArgumentParser):
     if args.mesh is not None:
         dims, names = _mesh_axes(args.mesh, ap)
         shape = dict(zip(names, dims))
-        if not explicit:
-            raise SystemExit("--zero1 spec under --mesh places parameters and "
-                             "optimizer state by GSPMD sharding specs, which the "
-                             "port has not got yet (DTensor placements, ROADMAP "
-                             "A12c); use --zero1 explicit")
-        if shape["model"] != 1:
+        if explicit and shape["model"] != 1:
             raise SystemExit("--zero1 explicit is the pure-DP shard_map path; "
                              "use a mesh with model axis 1")
         dp = dp_axes(SimpleNamespace(shape=shape))
-        if batch % math.prod(shape[a] for a in dp):
+        if explicit and batch % math.prod(shape[a] for a in dp):
             raise SystemExit(f"--zero1 explicit needs batch {batch} divisible "
                              f"by the data axes {dp}")
     elif explicit:
@@ -270,6 +295,8 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
     the trainer after its last step."""
     import torch
 
+    from torch.distributed.device_mesh import DeviceMesh
+
     from repro_torch.comms import FactorizedMesh
     from repro_torch.comms.api import CommContext, PlanPolicy
     from repro_torch.kernels import KERNELS
@@ -278,10 +305,17 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
     ap = ap or build_parser()
     cfg, seq, batch = _config(args, ap)
     mesh = ctx = None
-    rank0 = True
+    rank0, world = True, 1
     if args.mesh is not None:
-        mesh = FactorizedMesh(*_mesh_axes(args.mesh, ap))
-        rank0 = mesh.rank == 0
+        dims, names = _mesh_axes(args.mesh, ap)
+        world = math.prod(dims)
+        if args.zero1 == "spec":  # DTensor's mesh: one process group a mesh dim
+            mesh = DeviceMesh(dev.type, torch.arange(world).reshape(dims), mesh_dim_names=names)
+        else:
+            mesh = FactorizedMesh(dims, names)
+        rank0 = torch.distributed.get_rank() == 0
+        say_mesh = (f"mesh={dict(zip(names, dims))} ranks={world} backend="
+                    f"{'nccl' if dev.type == 'cuda' else 'gloo'}")
     say = print if rank0 else (lambda *a, **k: None)
     say(f"device={dev} arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
         f"dtype={cfg.dtype} seq={seq} batch={batch}", flush=True)
@@ -292,9 +326,15 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
     pipe = SyntheticLMPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     step_fn = traffic_note = None
-    if mesh is not None:
-        say(f"mesh={dict(mesh.shape)} ranks={mesh.size} backend="
-            f"{'nccl' if dev.type == 'cuda' else 'gloo'}", flush=True)
+    opt_state = None
+    if mesh is not None and args.zero1 == "spec":
+        say(f"{say_mesh} zero1=spec", flush=True)
+        shd.set_activation_policy({"dp": dp_axes(mesh), "tp": "model",
+                                   "sequence_parallel": not args.reduced})
+        params, opt_state, stacked = place_spec_state(cfg, opt_cfg, params, mesh)
+        step_fn = make_spec_train_step(cfg, opt_cfg, mesh, stacked)
+    elif mesh is not None:
+        say(say_mesh, flush=True)
         fast = ("data",)
         slow = ("pod",) if "pod" in mesh.shape else ()
         # one context for every explicit collective (the step installs it
@@ -330,7 +370,8 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
         cfg, opt_cfg,
         TrainerConfig(total_steps=args.steps, ckpt_interval=args.ckpt_interval,
                       ckpt_dir=args.ckpt_dir),
-        params=params, opt_state=adamw_init(params, opt_cfg), pipeline=pipe,
+        params=params, opt_state=adamw_init(params, opt_cfg) if opt_state is None else opt_state,
+        pipeline=pipe,
         train_step=step_fn,
         fault_injector=report_fault if ctx is not None and args.fault_step is not None
         else None,
@@ -353,6 +394,7 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
         losses = trainer.run()["losses"]
     finally:
         pipe.stop()
+        shd.set_activation_policy(None)
     launches = {name: k.launches for name, k in KERNELS.items()}
     if ctx is not None:
         say("[train/zero1-explicit] final comm telemetry:")
@@ -363,7 +405,7 @@ def train(dev, args, ap: Optional[argparse.ArgumentParser] = None,
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     say("[train/summary] " + json.dumps({
         "losses": losses, "step_s": step_s, "peak_bytes": peak, "launches": launches,
-        "ranks": mesh.size if mesh is not None else 1}))
+        "ranks": world}))
     if not losses:  # resumed at/past --steps: nothing left to run
         say(f"done: no steps to run (resumed at {start_step} of {args.steps})")
     else:

@@ -20,6 +20,7 @@ from ..comms import api
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
+from .sharding import whole_groups
 
 __all__ = ["attn_init", "attention_heads", "attention", "attention_tp_out",
            "attention_tp_out_sp"]
@@ -43,6 +44,16 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, dtype: torch.dtype,
     return p
 
 
+def _whole_heads(proj: Dict[str, torch.Tensor], heads: int) -> Dict[str, torch.Tensor]:
+    """The projection with its output columns split only between heads:
+    DTensor leaves whose split of the columns would cut a head apart are
+    replicated there (``sharding.whole_groups``), so that the head reshape
+    below keeps the rest of the split.  Replicating the weight rather than
+    its product keeps every gradient a reshape meets contiguous.  Plain
+    tensors pass through."""
+    return {k: whole_groups(w, -1, heads) for k, w in proj.items()}
+
+
 def attention_heads(
     p: Dict,
     cfg: ModelConfig,
@@ -63,7 +74,8 @@ def attention_heads(
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     if qkv is None:
-        q, k, v = dense(p["wq"], x), dense(p["wk"], x), dense(p["wv"], x)
+        q, k, v = (dense(_whole_heads(p[n], heads), x)
+                   for n, heads in (("wq", H), ("wk", Hkv), ("wv", Hkv)))
     else:
         q, k, v = qkv
     q = q.reshape(B, S, H, hd)

@@ -38,6 +38,13 @@ writes the one it is given in place and returns it: each attention's K/V
 at ``cache_pos``, and each layer's recurrent state for every lane, after
 that layer has read it.
 
+Parameters and inputs may be DTensors (``launch.train --zero1 spec``): the
+same code then runs in global semantics, DTensor's sharding propagation
+placing every intermediate, and ``sharding.constrain`` redistributes the
+hidden state where the reference constrains it (after the embedding, after
+each layer, after the final norm) and the logits on the head.  On plain
+tensors ``constrain`` returns its input.
+
 Training: ``loss_fn`` runs the layers with ``head_mode="none"`` and the
 sequence-chunked cross entropy ``_chunked_xent``, plus, for an MoE model,
 the reference's load-balance and router-z terms.  Where ``cfg.remat`` is
@@ -69,6 +76,8 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels.local import call_local
+from ..tree import is_dtensor
 from .attention import (
     attention,
     attention_heads,
@@ -81,6 +90,7 @@ from .mamba2 import mamba2_block, mamba2_init, mamba2_state_init
 from .mlp import ffn_apply_tp, ffn_apply_tp_sp, mlp, mlp_init
 from .moe import moe_block, moe_init
 from .rwkv6 import rwkv6_channel_mix, rwkv6_init, rwkv6_state_init, rwkv6_time_mix
+from .sharding import constrain, whole_sequence
 
 __all__ = ["init_params", "init_decode_state", "forward", "apply_head", "loss_fn",
            "decode_step", "torch_dtype", "transformer_block_tp", "transformer_block_ref",
@@ -198,6 +208,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
+def _rows_rule(tokens, table):
+    """``_embedding_rows``' placements: the tokens keep their batch split,
+    the table is whole on every rank, and its gradient is a partial sum
+    over the mesh dims that split the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in tokens.placements]
+    whole = [Replicate()] * len(pl)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return [pl, whole], [pl, grad], [pl]
+
+
+def _embedding_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor table: indexing runs on each rank's
+    rows of the batch against the whole table (``kernels.local.call_local``),
+    the op the one-device path runs, so one rank computes its bits.  DTensor
+    has no rule for indexing's backward in torch 2.11, and its
+    ``F.embedding`` rule sums the table's gradient in another order."""
+    B, S = tokens.shape
+    return call_local(lambda t, w: w[t.long()], _rows_rule, (tokens, table),
+                      ((B, S, table.shape[1]),), "embedding")
+
+
 def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
                   ) -> torch.Tensor:
     """The (B, S, d) input of the first layer, in the model's dtype.  Audio:
@@ -205,10 +238,14 @@ def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
     and for a vision model with ``batch["image_embeds"]`` (B, P, d) those
     written over positions [0, P), as the reference's
     ``dynamic_update_slice`` at (0, 0, 0) writes them; an image block larger
-    than the token embeddings in any dimension raises, as it does there."""
+    than the token embeddings in any dimension raises, as it does there.
+    A DTensor table is read on each rank's rows (``_embedding_rows``)."""
     if cfg.frontend == "audio":
         return batch["embeds"].to(torch_dtype(cfg))
-    x = params["embed"][batch["tokens"].long()]
+    if is_dtensor(params["embed"]):
+        x = _embedding_rows(params["embed"], batch["tokens"])
+    else:
+        x = params["embed"][batch["tokens"].long()]
     if cfg.frontend == "vision" and "image_embeds" in batch:
         img = batch["image_embeds"]
         if img.dim() != 3 or any(a > b for a, b in zip(img.shape, x.shape)):
@@ -227,18 +264,29 @@ def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return logits.float()
 
 
+def _mixer_input(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The normed input of a token mixer or FFN: the norm runs where the
+    residual stream is (sequence shards between layers under sequence
+    parallelism), its output is whole along the sequence
+    (``sharding.whole_sequence``; plain tensors pass through).  Inside a
+    layer the residual stream is whole too (``whole_sequence(x) + h``), so
+    no gradient of a projection arrives split over the sequence, which
+    the backward of a (B, S) -> rows flatten refuses."""
+    return whole_sequence(rmsnorm(p, x, eps))
+
+
 def _rwkv_layer_body(cfg: ModelConfig, layer: Dict, x: torch.Tensor,
                      state: Optional[Dict[str, torch.Tensor]]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     st = state or {}
     h, last_t, wkv = rwkv6_time_mix(
-        layer["tmix"], cfg, rmsnorm(layer["ln1"], x, cfg.norm_eps),
+        layer["tmix"], cfg, _mixer_input(layer["ln1"], x, cfg.norm_eps),
         last_x=st.get("tmix_x"), wkv_state=st.get("wkv"))
-    x = x + h
+    x = whole_sequence(x) + h
     h, last_c = rwkv6_channel_mix(
-        layer["cmix"], cfg, rmsnorm(layer["ln2"], x, cfg.norm_eps),
+        layer["cmix"], cfg, _mixer_input(layer["ln2"], x, cfg.norm_eps),
         last_x=st.get("cmix_x"))
-    return x + h, {"tmix_x": last_t, "cmix_x": last_c, "wkv": wkv}
+    return constrain(x + h, "hidden"), {"tmix_x": last_t, "cmix_x": last_c, "wkv": wkv}
 
 
 def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
@@ -252,13 +300,14 @@ def _attn_block(cfg: ModelConfig, block: Dict, x: torch.Tensor, positions: torch
     """rmsnorm -> attention -> rmsnorm -> SwiGLU FFN or MoE block, each with
     its residual; ``kv``, when given, is written in place at ``cache_pos``.
     Returns (x, the MoE block's aux losses, or None without one)."""
-    h, _ = attention(block["attn"], cfg, rmsnorm(block["ln1"], x, cfg.norm_eps),
+    h, _ = attention(block["attn"], cfg, _mixer_input(block["ln1"], x, cfg.norm_eps),
                      positions=positions, kv_cache=kv, cache_pos=cache_pos)
-    x = x + h
+    x = whole_sequence(x) + h
     if "moe" in block:
-        h, aux = moe_block(block["moe"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps))
-        return x + h, aux
-    return x + mlp(block["ffn"], cfg, rmsnorm(block["ln2"], x, cfg.norm_eps)), None
+        h, aux = moe_block(block["moe"], cfg, _mixer_input(block["ln2"], x, cfg.norm_eps))
+        return constrain(x + h, "hidden"), aux
+    h = mlp(block["ffn"], cfg, _mixer_input(block["ln2"], x, cfg.norm_eps))
+    return constrain(x + h, "hidden"), None
 
 
 #: the matrix products without a batch dimension: the operators whose
@@ -330,7 +379,7 @@ def _forward(
     _check_family(cfg)
     if head_mode not in ("full", "last", "none"):
         raise ValueError(f"head_mode {head_mode!r}: 'full', 'last' or 'none'")
-    x = _embed_inputs(cfg, params, batch)
+    x = constrain(_embed_inputs(cfg, params, batch), "hidden")
     B, S, _ = x.shape
     aux = _zero_aux(x.device) if cfg.moe is not None else None
 
@@ -351,11 +400,11 @@ def _forward(
 
         def body(x, i, layer, st, kv):
             h, new_st = mamba2_block(layer["mamba"], cfg,
-                                     rmsnorm(layer["ln1"], x, cfg.norm_eps), state=st)
-            x = x + h
+                                     _mixer_input(layer["ln1"], x, cfg.norm_eps), state=st)
+            x = whole_sequence(x) + h
             if i % every == every - 1:  # the shared block, with its own K/V slot
                 x, _ = _attn_block(cfg, params["shared_block"], x, positions, kv, cache_pos)
-            return x, new_st
+            return constrain(x, "hidden"), new_st
 
         body = _maybe_checkpoint(cfg, body)
         for i, layer in enumerate(params["layers"]):
@@ -380,12 +429,14 @@ def _forward(
             if layer_aux is not None:
                 aux = {k: a + layer_aux[k] for k, a in aux.items()}
 
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = constrain(rmsnorm(params["final_norm"], x, cfg.norm_eps), "hidden")
     if head_mode == "none":
         return x, cache, aux
+    x = whole_sequence(x)
     if head_mode == "last":
         x = x[:, -1:]
-    logits = apply_head(cfg, params, x)[..., :cfg.vocab_size]  # drop vocab padding
+    logits = constrain(apply_head(cfg, params, x), "logits")
+    logits = logits[..., :cfg.vocab_size]  # drop vocab padding
     if head_mode == "last":
         logits = logits[:, 0]
     return logits, cache, aux
@@ -412,6 +463,7 @@ def _chunked_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     live.  The chunk is the largest divisor of S that is at most
     ``cfg.loss_chunk``; each chunk's logits slab is reduced to its summed
     log-likelihood and dropped, and recomputed in the backward."""
+    hidden = whole_sequence(hidden)
     B, S, _ = hidden.shape
     chunk = min(cfg.loss_chunk, S)
     while S % chunk:

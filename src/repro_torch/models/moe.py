@@ -27,8 +27,10 @@ Where a literal translation would change the result:
 * the experts' ``silu(g) * u`` goes through ``kernels.ops.swiglu``: the
   plain version on the CPU, the B2 kernel on the card.
 
-The reference's ``constrain`` sharding hints are not ported (GSPMD
-placements are ROADMAP A12).
+On DTensors (``launch.train --zero1 spec``) the dispatch and expert
+buffers are redistributed by ``sharding.constrain(..., "moe_buffer")``
+where the reference constrains them: groups over the data axes, experts
+over ``model``.
 
 Expert parallelism: with ``cfg.moe.expert_axis`` set AND that axis in the
 active :func:`repro_torch.comms.api.comm_context`'s mesh, each rank owns
@@ -48,8 +50,11 @@ import torch.nn.functional as F
 from ..comms import api
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.local import call_local
+from ..tree import is_dtensor
 from .layers import dense_init
 from .mlp import ffn_apply, ffn_init
+from .sharding import constrain
 
 __all__ = ["moe_init", "moe_block"]
 
@@ -155,6 +160,83 @@ def _axis_mean(v: torch.Tensor, axis_name: str) -> torch.Tensor:
     return api.all_reduce(v.reshape(1), axis=0, axes=(axis_name,)).reshape(()) / m
 
 
+def _group_rule(n_out: int):
+    """Placements of a group-local region: every input and output split
+    over the groups (dim 0) as the lead input is, replicated elsewhere."""
+
+    def rule(lead, *rest):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in lead.placements]
+        ins = [pl] + [None if r is None else pl for r in rest]
+        return ins, ins, [pl] * n_out
+
+    return rule
+
+
+def _grouped(fn, args, out_shapes, name: str):
+    """``fn(*args)``; on DTensors, ``fn`` on this rank's groups.  The
+    dispatch's ``searchsorted``, ``index_add`` and advanced indexing have no
+    DTensor sharding rule, and every step of the dispatch stays inside a
+    group, so each region runs on the local groups (``kernels.local
+    .call_local``), with whatever split of the groups the lead input has and
+    every other mesh dim replicated."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    return call_local(fn, _group_rule(len(out_shapes)), args, out_shapes, name)
+
+
+def _route(router_logits: torch.Tensor, K: int, E: int):
+    """(probs, gate values, expert ids, picks): the router's softmax, its
+    top-``K`` (gates renormalised when K > 1), and each token's count of
+    picks of each expert, (G, Tg, E)."""
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)  # (G, Tg, K)
+    if K > 1:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    picks = F.one_hot(expert_ids, E).float().sum(dim=2)
+    return probs, gate_vals, expert_ids, picks
+
+
+def _dispatch(xg: torch.Tensor, expert_ids: torch.Tensor, E: int, C: int):
+    """Group-local sort-based dispatch of (G, Tg, d) tokens: the (G, E, C, d)
+    expert buffer, and the sorted expert ids, the sort order, each pair's
+    slot, whether it was kept and its source token, each (G, Tg*K)."""
+    G, Tg, d = xg.shape
+    K = expert_ids.shape[-1]
+    flat_ids = expert_ids.reshape(G, Tg * K)
+    sorted_ids, order = torch.sort(flat_ids, dim=-1, stable=True)
+    run_start = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    pos_in_expert = torch.arange(Tg * K, device=xg.device)[None, :] - run_start
+    keep = pos_in_expert < C
+    pos_c = torch.where(keep, pos_in_expert, C)  # slot C: dropped below
+    src_token = order // K  # (G, TgK) indices into the group's tokens
+
+    gathered = torch.gather(xg, 1, src_token[..., None].expand(G, Tg * K, d))
+    slot = (sorted_ids * (C + 1) + pos_c)[..., None].expand(G, Tg * K, d)
+    buf = xg.new_zeros((G, E * (C + 1), d)).scatter(1, slot, gathered)
+    buf = buf.view(G, E, C + 1, d)[:, :, :C]  # (G, E, C, d); overflow cut
+    return buf, sorted_ids, order, pos_c, keep, src_token
+
+
+def _combine(ye: torch.Tensor, gate_vals: torch.Tensor, sorted_ids: torch.Tensor,
+             order: torch.Tensor, pos_c: torch.Tensor, keep: torch.Tensor,
+             src_token: torch.Tensor) -> torch.Tensor:
+    """The kept pairs' expert outputs, gated and added back to their tokens:
+    (G * Tg, d)."""
+    G, _, C, d = ye.shape
+    Tg, K = gate_vals.shape[1], gate_vals.shape[2]
+    pos_clip = pos_c.clamp(max=C - 1)
+    gates_sorted = torch.gather(gate_vals.reshape(G, Tg * K), 1, order)
+    g_idx = torch.arange(G, device=ye.device)[:, None]
+    rows = ye[g_idx, sorted_ids, pos_clip]  # (G, TgK, d)
+    rows = rows.masked_fill(~keep[..., None], 0.0)
+    contrib = rows * gates_sorted[..., None].to(rows.dtype)
+    dst = (src_token + g_idx * Tg).reshape(-1)
+    return ye.new_zeros((G * Tg, d)).index_add(0, dst, contrib.reshape(G * Tg * K, d))
+
+
 def moe_block(p: Dict, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out, aux_losses).
@@ -175,32 +257,23 @@ def moe_block(p: Dict, cfg: ModelConfig, x: torch.Tensor
     xt = x.reshape(T, d)
     xg = x.reshape(G, Tg, d)
     router_logits = _router_logits(p["router"], xg.float())  # (G, Tg, E)
-    probs = torch.softmax(router_logits, dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)  # (G, Tg, K)
-    if K > 1:
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    probs, gate_vals, expert_ids, picks = _grouped(
+        lambda r: _route(r, K, E), (router_logits,),
+        ((G, Tg, E), (G, Tg, K), (G, Tg, K), (G, Tg, E)), "moe route")
 
     # ---- aux losses (Switch-style, over all tokens) ----
     me = probs.mean(dim=(0, 1))  # (E,)
-    ce = F.one_hot(expert_ids, E).float().sum(dim=2).mean(dim=(0, 1))
+    ce = picks.mean(dim=(0, 1))
     aux = {
         "load_balance": E * (me * ce).sum(),
         "router_z": (torch.logsumexp(router_logits, dim=-1) ** 2).mean(),
     }
 
     # ---- group-local sort-based dispatch ----
-    flat_ids = expert_ids.reshape(G, Tg * K)
-    sorted_ids, order = torch.sort(flat_ids, dim=-1, stable=True)
-    run_start = torch.searchsorted(sorted_ids, sorted_ids, side="left")
-    pos_in_expert = torch.arange(Tg * K, device=x.device)[None, :] - run_start
-    keep = pos_in_expert < C
-    pos_c = torch.where(keep, pos_in_expert, C)  # slot C: dropped below
-    src_token = order // K  # (G, TgK) indices into the group's tokens
-
-    gathered = torch.gather(xg, 1, src_token[..., None].expand(G, Tg * K, d))
-    slot = (sorted_ids * (C + 1) + pos_c)[..., None].expand(G, Tg * K, d)
-    buf = x.new_zeros((G, E * (C + 1), d)).scatter(1, slot, gathered)
-    buf = buf.view(G, E, C + 1, d)[:, :, :C]  # (G, E, C, d); overflow cut
+    pairs = (G, Tg * K)
+    buf, *routing = _grouped(lambda a, b: _dispatch(a, b, E, C), (xg, expert_ids),
+                             ((G, E, C, d),) + (pairs,) * 5, "moe dispatch")
+    buf = constrain(buf, "moe_buffer")
 
     if e.expert_axis is not None and _ep_active(e.expert_axis):
         # experts live on the mesh: dispatch/combine cross it through the
@@ -209,15 +282,9 @@ def moe_block(p: Dict, cfg: ModelConfig, x: torch.Tensor
         aux = {k: _axis_mean(v, e.expert_axis) for k, v in aux.items()}
     else:
         ye = _expert_ffn(p["experts"], buf)  # (G, E, C, d)
+    ye = constrain(ye, "moe_buffer")
 
-    pos_clip = pos_c.clamp(max=C - 1)
-    gates_sorted = torch.gather(gate_vals.reshape(G, Tg * K), 1, order)
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    rows = ye[g_idx, sorted_ids, pos_clip]  # (G, TgK, d)
-    rows = rows.masked_fill(~keep[..., None], 0.0)
-    contrib = rows * gates_sorted[..., None].to(rows.dtype)
-    dst = (src_token + g_idx * Tg).reshape(-1)
-    out = x.new_zeros((T, d)).index_add(0, dst, contrib.reshape(G * Tg * K, d))
+    out = _grouped(_combine, (ye, gate_vals, *routing), ((T, d),), "moe combine")
 
     if e.shared_expert:
         out = out + ffn_apply(p["shared"], xt)

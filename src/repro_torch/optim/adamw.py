@@ -12,8 +12,16 @@ Where JAX donates buffers, the port updates in place: ``adamw_update``
 writes the parameters, the moments and the master copy under
 ``torch.no_grad()`` and returns the same containers.  The norm is summed
 leaf by leaf in f32, so no f32 copy of the whole gradient tree is made.
-The sharding specs of the reference (``opt_state_specs``) come with the
-DTensor placements (ROADMAP A12c).
+
+ZeRO-1 is the reference's: ``opt_state_specs`` gives the moments and the
+master copy a ``data`` sharding on the first unsharded dim that ``data``
+divides (``_zero1_spec``).  On DTensors (``launch.train --zero1 spec``)
+``adamw_update`` redistributes each gradient to its moment's placements
+(a gradient that is a partial sum over the data axes is reduce-scattered
+there), keeps ``m``, ``v`` and ``master`` where they are, and writes each
+parameter at its own placements (the master copy, rounded to the
+parameter's dtype, is gathered back to them), so the next forward sees
+what the specs say.
 """
 from __future__ import annotations
 
@@ -23,9 +31,10 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..models.sharding import P, axis_sizes, map_specs
+from ..tree import is_dtensor, tree_leaves, tree_map
 
-__all__ = ["OptimizerConfig", "cosine_lr", "adamw_init", "adamw_update"]
+__all__ = ["OptimizerConfig", "cosine_lr", "adamw_init", "adamw_update", "opt_state_specs"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,19 +88,28 @@ def adamw_init(params: Any, cfg: Optional[OptimizerConfig] = None) -> Dict[str, 
 
 @torch.no_grad()
 def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
-                 cfg: OptimizerConfig) -> Tuple[Any, Dict[str, Any]]:
+                 cfg: OptimizerConfig, *, norm_of: Any = None) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step, written in place into ``params`` and ``opt_state``
-    (``grads`` has the parameters' structure); returns both."""
+    (``grads`` has the parameters' structure); returns both.  The global
+    norm is summed over the leaves of ``norm_of`` in their order (default
+    ``grads``): the spec step passes its gradients per layer, as one device
+    has them, while ``grads`` holds them stacked."""
     step = int(opt_state["step"]) + 1
     lr = float(cosine_lr(cfg, step))
 
     g_leaves = tree_leaves(grads)
-    sq = [g.float().square().sum() for g in g_leaves]
+    m_leaves = tree_leaves(opt_state["m"])
+    placed = is_dtensor(m_leaves[0])
+    sq = [g.float().square().sum() for g in tree_leaves(grads if norm_of is None else norm_of)]
     total = sq[0]
     for s in sq[1:]:
         total = total + s
+    if placed:
+        total = total.full_tensor()
     gnorm = torch.sqrt(total)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
+    if placed:
+        scale = float(scale)  # a python number mixes with DTensors
 
     stepf = torch.tensor(step, dtype=torch.float32)
     b1c = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
@@ -104,16 +122,51 @@ def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
         return w32 - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * w32)
 
     masters = tree_leaves(opt_state["master"]) if cfg.use_master else [None] * len(g_leaves)
-    for g, p, m, v, master in zip(g_leaves, tree_leaves(params), tree_leaves(opt_state["m"]),
+    for g, p, m, v, master in zip(g_leaves, tree_leaves(params), m_leaves,
                                   tree_leaves(opt_state["v"]), masters):
+        if placed:  # the gradient at its moment's (ZeRO-1) placements
+            g = g.redistribute(m.device_mesh, m.placements)
         g32 = g.float() * scale
         m.copy_(cfg.b1 * m.float() + (1 - cfg.b1) * g32)
         v.copy_(cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32)
         del g32
         if master is not None:
             master.copy_(upd(master, m, v))
-            p.copy_(master)  # rounds to the parameter's dtype
+            new = master
         else:
-            p.copy_(upd(p, m, v))
+            new = upd(p.redistribute(m.device_mesh, m.placements) if placed else p, m, v)
+        if placed:  # rounded to the parameter's dtype, then gathered to its placements
+            new = new.to(p.dtype).redistribute(p.device_mesh, p.placements)
+        p.copy_(new)  # rounds to the parameter's dtype
     opt_state["step"].fill_(step)
     return params, opt_state
+
+
+def _zero1_spec(spec: P, shape: Tuple[int, ...], data_size: int) -> P:
+    """Add a 'data' sharding on the first unsharded dim divisible by the
+    data-axis size (ZeRO-1); fall back to the param spec."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    used = {a for p in parts if p is not None
+            for a in (p if isinstance(p, tuple) else (p,))}
+    if "data" in used:  # already data-sharded (e.g. FSDP params)
+        return P(*parts)
+    for i, (p, dim) in enumerate(zip(parts, shape)):
+        if p is None and dim % data_size == 0 and dim > 0:
+            parts[i] = "data"
+            return P(*parts)
+    return P(*parts)
+
+
+def opt_state_specs(param_specs, param_shapes, mesh, *, with_master: bool = True):
+    """Specs of the optimizer state (ZeRO-1 over 'data'): ``{"step": P(),
+    "m", "v"[, "master"]}`` for ``param_specs`` of leaves shaped as
+    ``param_shapes`` (tensors or anything with a ``shape``).  The
+    reference's layout stacks the layers; so does the spec path's
+    optimizer state (``launch.train``)."""
+    data_size = axis_sizes(mesh).get("data", 1)
+    zero1 = map_specs(lambda s, t: _zero1_spec(s, tuple(t.shape), data_size),
+                      param_specs, param_shapes)
+    out = {"step": P(), "m": zero1, "v": zero1}
+    if with_master:
+        out["master"] = zero1
+    return out

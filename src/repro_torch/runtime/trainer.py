@@ -19,10 +19,16 @@ returns a step that runs the loss and its backward and then updates the
 parameters and the optimizer state in place.  ``make_dp_train_step`` is
 the reference's explicit ZeRO-1 step (``repro/launch/train.py``) for one
 rank of a data-parallel world, with the OpTree-planned reduce-scatter and
-all-gather between the backward and the update; ``Trainer`` runs either.
+all-gather between the backward and the update.  ``make_spec_train_step``
+is the reference's spec step: parameters, optimizer state and batch are
+DTensors placed by the sharding specs (``place_spec_state``), the step is
+written in global semantics and DTensor's own collectives carry it.
+``Trainer`` runs any of them; with DTensor state every rank gathers each
+checkpoint and the writer writes it.
 """
 from __future__ import annotations
 
+import math
 import signal
 import time
 from dataclasses import dataclass
@@ -36,12 +42,14 @@ from ..comms import api
 from ..configs.base import ModelConfig
 from ..core.planner import ICI_LINK, plan_staged_allgather
 from ..models import loss_fn
+from ..models import sharding as shd
 from ..models.sharding import dp_axes
-from ..optim import OptimizerConfig, adamw_update
+from ..optim import OptimizerConfig, adamw_init, adamw_update, opt_state_specs
 from ..optim.zero1 import zero1_shard_grads, zero1_unshard_params
-from ..tree import tree_copy_, tree_leaves, tree_map
+from ..tree import is_dtensor, tree_copy_, tree_leaves, tree_map
 
-__all__ = ["TrainerConfig", "Trainer", "make_train_step", "make_dp_train_step", "replan"]
+__all__ = ["TrainerConfig", "Trainer", "make_train_step", "make_dp_train_step",
+           "make_spec_train_step", "place_spec_batch", "place_spec_state", "replan"]
 
 
 @dataclass
@@ -62,6 +70,10 @@ def _loss_and_grads(cfg: ModelConfig, params, batch):
         p.requires_grad_(True)
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, params, batch)
+        if is_dtensor(loss):  # the gradient of the whole loss, not of a partial sum
+            from torch.distributed.tensor import Replicate
+
+            loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
         grads = iter(torch.autograd.grad(loss, leaves))
     return tree_map(lambda _: next(grads), params), {k: v.detach() for k, v in metrics.items()}
 
@@ -150,6 +162,78 @@ def make_dp_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh,
     return step
 
 
+def place_spec_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, params, mesh):
+    """The spec path's state on the ``DeviceMesh`` ``mesh`` (dims named
+    ``data``, ``model`` [, ``pod``]): ``(params, opt_state, stacked)``.
+
+    Every rank passes the same full ``params``.  The parameters are placed
+    by ``sanitize_tree(param_specs)``; their layers are stored stacked, as
+    the reference stores them (``stacked``, the layer dim never split), and
+    ``params["layers"]`` holds views of that storage, one tree a layer.
+    The optimizer state has the reference's layout (layers stacked) and
+    ZeRO-1 placements (``sanitize_tree(opt_state_specs)``); its ``step``
+    stays a host scalar.  Nothing is sent: each rank keeps its shards."""
+    pspecs = shd.sanitize_tree(shd.param_specs(cfg, params), params, mesh)
+    stacked = dict(params)
+    stacked["layers"] = shd.stack_layers(params["layers"])
+    stacked_specs = dict(pspecs)
+    stacked_specs["layers"] = shd.map_specs(lambda s: shd.P(None, *s), pspecs["layers"][0])
+    opt_state = adamw_init(stacked, opt_cfg)
+    ospecs = shd.sanitize_tree(
+        opt_state_specs(stacked_specs, stacked, mesh, with_master=opt_cfg.use_master),
+        opt_state, mesh)
+    placed = shd.distribute_tree(stacked, stacked_specs, mesh)
+    del stacked
+    for k in ("m", "v", "master"):
+        if k in opt_state:
+            opt_state[k] = shd.distribute_tree(opt_state[k], ospecs[k], mesh)
+    out = dict(placed)
+    out["layers"] = shd.unstack_layers(placed["layers"], params["layers"])
+    return out, opt_state, placed
+
+
+def place_spec_batch(batch, mesh):
+    """The GLOBAL ``batch`` (the same on every rank) as DTensors on
+    ``mesh``: placed ``P(dp_axes(mesh), None)`` when the data axes divide
+    its rows and replicated otherwise, as the reference's launcher places
+    it.  Nothing is sent: each rank keeps its shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dp = dp_axes(mesh)
+    ndp = math.prod(shd.axis_sizes(mesh)[a] for a in dp)
+    spec = shd.P(dp, None) if batch["labels"].shape[0] % ndp == 0 else shd.P()
+    return {k: distribute_tensor(v, mesh, shd.to_placements(spec, mesh), src_data_rank=None)
+            for k, v in batch.items()}
+
+
+def make_spec_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh, stacked) -> Callable:
+    """The reference's spec step (``repro/launch/train.py``, ``--zero1
+    spec``) on the ``DeviceMesh`` ``mesh``: ``step(params, opt_state,
+    batch)`` with the state of ``place_spec_state`` (``stacked`` its stacked
+    parameters) and the GLOBAL batch on every rank.
+
+    The batch is placed by ``place_spec_batch``; the loss and its gradients run in
+    global semantics (plain tensors made inside the step, such as the
+    positions, count as replicated), the gradients are stacked as the
+    reference's are, and AdamW reduce-scatters them to the ZeRO-1 state and
+    writes the parameters back at their placements.  The loss returned is
+    a plain 0-dim tensor, the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def step(params, opt_state, batch):
+        with implicit_replication():
+            grads, metrics = _loss_and_grads(cfg, params, place_spec_batch(batch, mesh))
+            grads["layers"] = shd.stack_layers(grads["layers"])
+            # the global norm summed layer by layer, in the order one device
+            # sums it, over views of the stacked gradients
+            per_layer = dict(grads)
+            per_layer["layers"] = shd.unstack_layers(grads["layers"], params["layers"])
+            adamw_update(grads, opt_state, stacked, opt_cfg, norm_of=per_layer)
+        return params, opt_state, {"loss": metrics["loss"].full_tensor()}
+
+    return step
+
+
 class Trainer:
     def __init__(
         self,
@@ -207,8 +291,14 @@ class Trainer:
         }
 
     def save(self, blocking: bool = False):
+        if not self.tcfg.ckpt_interval:
+            return
+        state = self._state()
+        if any(is_dtensor(t) for t in tree_leaves(state)):
+            # a collective: every rank gathers, the writer writes
+            state = tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t, state)
         if self.writer:
-            self.ckpt.save(self.step, self._state(), blocking=blocking)
+            self.ckpt.save(self.step, state, blocking=blocking)
 
     def try_restore(self) -> bool:
         """Load the latest committed checkpoint into the parameters and the

@@ -6,11 +6,18 @@ fixed order: dict items in insertion order, list and tuple items by index.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable, Dict, List
 
 import torch
 
-__all__ = ["tree_leaves", "tree_map", "tree_flatten_with_keys", "tree_copy_"]
+__all__ = ["is_dtensor", "tree_leaves", "tree_map", "tree_flatten_with_keys", "tree_copy_"]
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor (without importing DTensor where none can exist)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -49,7 +56,13 @@ def tree_flatten_with_keys(tree: Any, prefix: str = "") -> Dict[str, Any]:
 
 def tree_copy_(dst: Any, src: Any) -> None:
     """Copy each leaf of ``src`` into the matching tensor of ``dst``, in
-    place and outside autograd."""
+    place and outside autograd.  Where ``dst`` is a DTensor and ``src`` the
+    full tensor (the same on every rank), each rank copies its shard."""
     with torch.no_grad():
         for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+            if is_dtensor(d) and not is_dtensor(s):
+                from torch.distributed.tensor import distribute_tensor
+
+                s = distribute_tensor(s.to(d.device), d.device_mesh, d.placements,
+                                      src_data_rank=None)
             d.copy_(s)

@@ -320,7 +320,7 @@ def test_refusals_match_reference(runs, name, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2,4"], "ROADMAP A12c"),
+    (["--arch", "hubert-xlarge", "--mesh", "2,4"], "frame embeddings"),
     (["--zero1", "explicit"], "give it --mesh"),
 ])
 def test_port_refuses_what_it_has_not_got(argv, match, tmp_path):

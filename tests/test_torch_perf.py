@@ -313,8 +313,8 @@ def test_moe_plans_and_modeled_times_equal_reference(port_world, ref_rows, arch)
         assert got[key] == pytest.approx(want[key], rel=MOE_REL, abs=0), key
     assert got["allclose"] is want["allclose"] is True
     assert got["a2a_plans"] >= 1
-    assert got["measured_ep_us"] > 0 and got["measured_local_us"] > 0
-    assert "measured_gspmd_us" not in got
+    assert got["measured_ep_us"] > 0 and got["measured_gspmd_us"] > 0
+    assert set(got) == set(want)
 
 
 def test_calibrated_links_load_and_replan_the_collectives(port_world):

@@ -216,7 +216,7 @@ def test_perf_tp_block_prints_every_row(runs):
         for fuse in C.FUSES:
             (row,) = [r for r in rows if r.startswith(f"[perf/tp-block] {variant} fuse={fuse} ")]
             for field in ("plans=", "issued=", "modeled elec=", "optical=", "measured explicit=",
-                          "unsharded=", "modes=", "cache="):
+                          "gspmd=", "modes=", "cache="):
                 assert field in row, (field, row)
             assert row.endswith("allclose=True"), row
 
